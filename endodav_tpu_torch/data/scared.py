@@ -1,6 +1,12 @@
-"""SCARED whole-sequence eval loader (port of
-`endodav_tpu/data/scared.py:ScaredVideos`, including the `pred_root`
-re-eval mode)."""
+"""SCARED datasets: the training clip sampler and the whole-sequence eval
+loader.
+
+Port of `endodav_tpu/data/scared.py`: `ScaredVideoClips` (:30-193) in its
+device-preprocess layout (the scale-0 stack, the frame-window map and the
+jitter parameters; the pyramid and the jitter run on the card,
+`ops/jitter.py`), and `ScaredVideos` with the `pred_root` re-eval mode.
+Outputs are numpy, channels-last; batching happens in `data/loader.py`.
+"""
 
 from __future__ import annotations
 
@@ -9,10 +15,84 @@ import os
 
 import numpy as np
 
-from endodav_tpu_torch.data import readers
+from endodav_tpu_torch.data import pipeline, readers
 from endodav_tpu_torch.data.pipeline import pixel_intrinsics
 
-__all__ = ["ScaredVideos"]
+__all__ = ["ScaredVideoClips", "ScaredVideos"]
+
+
+class ScaredVideoClips:
+    """Length-T training clips over all keyframe dirs of a split.
+
+    Item ``index`` starts at frame ``index * T + randint(T)``; the clip's
+    T + 2 frames (one before, one after) are loaded, flipped at random and
+    resized to (height, width) on the host.  The item holds
+    ``("frames_scale0",)`` [T+2, H, W, 3], ``("frame_window_map",)``
+    [3, T] (rows: frame ids 0, -1, +1), ``("jitter_order",)`` [4],
+    ``("jitter_factors",)`` [4] and per-scale ``("K", s)``/``("inv_K", s)``
+    [T, 4, 4].  Per-item rngs keep sampling deterministic under any worker
+    count.  (The host-preprocess and random_train layouts are not ported.)
+    """
+
+    def __init__(self, data_path: str, filenames: list[str], height: int, width: int,
+                 frame_idxs=(0, -1, 1), num_scales: int = 4, is_train: bool = False,
+                 T: int = 4, frame_max_interval: int = 1, seed: int = 314):
+        if tuple(frame_idxs) != (0, -1, 1):
+            raise ValueError(f"the video trainer requires frame_ids [0, -1, 1], got {frame_idxs}")
+        self.height, self.width = height, width
+        self.num_scales = num_scales
+        self.is_train = is_train
+        self.T = T
+        self.frame_max_interval = frame_max_interval
+        self.seed = seed
+        self.epoch = 0  # bumped by the Loader so repeated indices resample
+        self.frames: list[str] = []
+        for filename in filenames:
+            left = readers.list_frames(os.path.join(data_path, filename))["left"]
+            if not left:
+                raise FileNotFoundError(f"no frames under {os.path.join(data_path, filename)}")
+            self.frames.extend(left)
+
+    def __len__(self):
+        n = len(self.frames)
+        length = n - self.T - 2 + 1 - self.frame_max_interval * self.T
+        return max(0, length // self.T)
+
+    def _load_colors(self, indices, flip: bool) -> np.ndarray:
+        frames = [readers.read_image(self.frames[i]).astype(np.float32) / 255.0 for i in indices]
+        stack = np.stack(frames, axis=0)
+        return stack[:, :, ::-1] if flip else stack
+
+    def __getitem__(self, index: int) -> dict:
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch, int(index), 0]))
+        index = index * self.T + int(rng.integers(0, self.T))
+        if self.frame_max_interval > 1:
+            frame_steps = rng.integers(1, self.frame_max_interval, size=self.T + 2)
+        else:
+            frame_steps = np.ones(self.T + 2, dtype=np.int64)
+        do_aug = self.is_train and rng.random() > 0.5
+        do_flip = self.is_train and rng.random() > 0.5
+        jit = pipeline.sample_color_jitter(rng) if do_aug else None
+
+        indices = [index + fi * int(frame_steps[fi]) for fi in range(self.T + 2)]
+        colors = self._load_colors(indices, do_flip)
+        r = np.arange(self.T)
+        inputs = {
+            ("frames_scale0",): pipeline.resize_frames(colors, (self.height, self.width)),
+            ("frame_window_map",): np.stack([1 + r, r, 2 + r]).astype(np.int32),
+        }
+        if jit is not None:
+            inputs[("jitter_order",)] = np.asarray(jit["order"], np.int32)
+            inputs[("jitter_factors",)] = np.asarray(
+                [jit["brightness"], jit["contrast"], jit["saturation"], jit["hue"]], np.float32)
+        else:
+            inputs[("jitter_order",)] = np.arange(4, dtype=np.int32)
+            inputs[("jitter_factors",)] = np.asarray([1.0, 1.0, 1.0, 0.0], np.float32)
+        for s in range(self.num_scales):
+            K, inv_K = pipeline.scaled_intrinsics(self.width, self.height, s)
+            inputs[("K", s)] = np.repeat(K[None], self.T, axis=0)
+            inputs[("inv_K", s)] = np.repeat(inv_K[None], self.T, axis=0)
+        return inputs
 
 
 class ScaredVideos:

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `endodav_tpu_torch/csrc/` have a plain C interface, so
-nvcc compiles them without PyTorch's headers (seconds, not minutes) into
-one shared library under `endodav_tpu_torch/_build/`, named by a hash of
-the sources and flags.  The library is built at first use and loaded
-with `ctypes`; nothing here runs at import time, and a failed build
-raises with nvcc's output.
+nvcc compiles them without PyTorch's headers (seconds, not minutes): one
+nvcc per source, all started together, then one link into a shared
+library under `endodav_tpu_torch/_build/`, named by a hash of the
+sources and flags.  The library is built at first use and loaded with
+`ctypes`; nothing here runs at import time, and a failed build raises
+with nvcc's output.
 """
 
 from __future__ import annotations
@@ -25,10 +26,10 @@ __all__ = ["library", "build_log", "check", "dtype_code", "stream_of"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-_SOURCES = ("flash_attention.cu", "fused_temporal_block.cu")
+_SOURCES = ("flash_attention.cu", "fused_temporal_block.cu", "warp.cu")
 _HEADERS = ("common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,6 +45,11 @@ _SIGNATURES = {
     "endodav_fused_temporal_block": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                       _vp, _vp, _int, _int, _int, _int, _int, _f, _vp],
                                      _int),
+    "endodav_grid_sample_fwd": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
+                                 _vp], _int),
+    "endodav_grid_sample_bwd": ([_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                                 _int, _int, _int, _vp], _int),
+    "endodav_splat": ([_vp, _vp, _vp, _int, _int, _int, _int, _vp], _int),
 }
 
 
@@ -68,12 +74,24 @@ def _compile() -> Path:
     if so.exists():
         return so
     _BUILD.mkdir(exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    objs = [_BUILD / f"{Path(n).stem}.{tag}.o" for n in _SOURCES]
+    procs = [subprocess.Popen([_nvcc(), *_FLAGS, "-c", "-o", str(o), str(_CSRC / n)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for n, o in zip(_SOURCES, objs)]
+    outs = [(n, p.communicate()[0], p.returncode) for n, p in zip(_SOURCES, procs)]
+    _log = "".join(f"== {n}\n{out}" for n, out, _ in outs)
+    failed = [(n, rc) for n, _, rc in outs if rc != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{_log}")
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *(str(_CSRC / n) for n in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    _log = res.stdout + res.stderr
+    res = subprocess.run([_nvcc(), *_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    _log += res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n{_log}")
+        raise RuntimeError(f"nvcc link failed with exit code {res.returncode}:\n{_log}")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, so)
     return so
 

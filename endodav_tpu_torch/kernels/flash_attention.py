@@ -6,8 +6,10 @@ Port of `endodav_tpu/kernels/flash_attention.py` (the Pallas
 by side.  On a CUDA tensor it launches `csrc/flash_attention.cu`, which
 reads q, k and v as strided views of the packed tensor; on a CPU tensor
 it runs `attention_reference`, the port of the JAX `_xla_attention`.
-The serving path runs under `torch.inference_mode()`; the backward pass
-comes with the training slice.
+On the card the kernel sits in `_QKVAttention`, whose backward is a
+plain-PyTorch recompute of JAX's `_bwd` (flash_attention.py:225-249: the
+scores are rebuilt from q and k, no Pallas backward kernel exists) and
+returns d_qkv in the packed [B, N, 3C] layout.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from endodav_tpu_torch.kernels import _build
 
-__all__ = ["attention_reference", "qkv_attention"]
+__all__ = ["attention_reference", "attention_backward", "qkv_attention"]
 
 HEAD_DIM = 64  # the one head width the kernel is built for (vits, vitl)
 
@@ -31,6 +33,42 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def attention_backward(q, k, v, g, scale: float):
+    """JAX `_bwd` over [B, N, H, Dh]: (dq, dk, dv) from the cotangent g,
+    with the softmax recomputed in f32."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    gf = g.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.float())
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _split_qkv(qkv, heads):
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    return [qkv[..., i * c:(i + 1) * c].reshape(b, n, heads, c // heads) for i in range(3)]
+
+
+class _QKVAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, heads, scale):
+        ctx.save_for_backward(qkv)
+        ctx.heads, ctx.scale = heads, scale
+        return _launch(qkv, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        b, n, c3 = qkv.shape
+        q, k, v = _split_qkv(qkv, ctx.heads)
+        grads = attention_backward(q, k, v, g.reshape(b, n, ctx.heads, -1), ctx.scale)
+        return torch.cat([d.reshape(b, n, c3 // 3) for d in grads], dim=-1), None, None
+
+
 def qkv_attention(qkv: torch.Tensor, heads: int, scale: float | None = None) -> torch.Tensor:
     """Multi-head self-attention from a packed projection [B, N, 3C] -> [B, N, C]."""
     b, n, c3 = qkv.shape
@@ -41,10 +79,17 @@ def qkv_attention(qkv: torch.Tensor, heads: int, scale: float | None = None) -> 
     if scale is None:
         scale = dh ** -0.5
     if qkv.device.type == "cpu":
-        q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, n, heads, dh) for i in range(3))
-        return attention_reference(q, k, v, scale).reshape(b, n, c)
+        return attention_reference(*_split_qkv(qkv, heads), scale).reshape(b, n, c)
     if qkv.device.type != "cuda":
         raise ValueError(f"qkv_attention: unsupported device {qkv.device}")
+    return _QKVAttention.apply(qkv, heads, float(scale))
+
+
+def _launch(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
+    """Launch the kernel on a CUDA qkv [B, N, 3C]; returns [B, N, C]."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    dh = c // heads
     code = _build.dtype_code(qkv, "qkv_attention")
     if dh != HEAD_DIM:
         raise ValueError(f"qkv_attention: head width {dh} not supported by the kernel "

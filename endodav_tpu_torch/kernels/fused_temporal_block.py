@@ -9,6 +9,11 @@ layout [C_in, C_out].  On a CUDA tensor it launches
 `csrc/fused_temporal_block.cu`; on a CPU tensor it runs `reference_block`,
 the port of the JAX `reference_block`.  Shapes the kernel cannot take
 (the shared-memory footprint of vitl's C=1024) raise; nothing falls back.
+On the card the kernel sits in `_FusedTemporalBlock`, whose backward
+recomputes `reference_block` under autograd, as JAX's `_bwd`
+(fused_temporal_block.py:262-268) does.  The training step does not run
+this block (JAX fuses it only at inference); the gradient keeps the
+wrapper from ever handing back a result cut off from autograd.
 """
 
 from __future__ import annotations
@@ -58,14 +63,38 @@ def rows_per_block(t: int, c: int) -> int:
     return 1
 
 
+class _FusedTemporalBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, heads, *args):
+        ctx.save_for_backward(*args)
+        ctx.heads = heads
+        return _launch(*args, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [a.detach().requires_grad_(need)
+                      for a, need in zip(args, ctx.needs_input_grad[1:])]
+            out = reference_block(*inputs, ctx.heads)
+            wanted = [a for a in inputs if a.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (None, *(next(grads) if a.requires_grad else None for a in inputs))
+
+
 def fused_temporal_block(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int = 8):
     """x [B*, T, C]; gamma/beta [C] and pe [T, C] in f32; wq/wk/wv/wo [C, C]
     and bo [C] in x's dtype.  Returns x + Attn(LN(x)+pe) Wo + bo."""
-    bstar, t, c = x.shape
     if x.device.type == "cpu":
         return reference_block(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_temporal_block: unsupported device {x.device}")
+    return _FusedTemporalBlock.apply(heads, x, gamma, beta, pe, wq, wk, wv, wo, bo)
+
+
+def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
+    """Launch the kernel on CUDA tensors; returns a new [B*, T, C]."""
+    bstar, t, c = x.shape
     code = _build.dtype_code(x, "fused_temporal_block")
     if not 1 <= t <= 32:
         raise ValueError(f"fused_temporal_block: T={t} outside 1..32")

@@ -148,19 +148,20 @@ class DPTDecoder(nn.Module):
         s = self.scratch
         return conv_nhwc(s.layer1_rn, layer_1), conv_nhwc(s.layer2_rn, layer_2), layer_3, layer_4
 
-    def suffix(self, maps, frames: int):
-        """Window half: temporal modules + fusion pyramid + heads."""
+    def suffix(self, maps, frames: int, train: bool = False):
+        """Window half: temporal modules + fusion pyramid + heads; ``train``
+        picks the motion modules' route (models/motion.py)."""
         layer_1_rn, layer_2_rn, layer_3, layer_4 = maps
         s = self.scratch
-        layer_3 = self.motion_modules[0](layer_3, frames)
-        layer_4 = self.motion_modules[1](layer_4, frames)
+        layer_3 = self.motion_modules[0](layer_3, frames, train)
+        layer_4 = self.motion_modules[1](layer_4, frames, train)
         layer_3_rn = conv_nhwc(s.layer3_rn, layer_3)
         layer_4_rn = conv_nhwc(s.layer4_rn, layer_4)
 
         path_4 = s.refinenet4(layer_4_rn, None, layer_3_rn.shape[1:3])
-        path_4 = self.motion_modules[2](path_4, frames)
+        path_4 = self.motion_modules[2](path_4, frames, train)
         path_3 = s.refinenet3(path_4, layer_3_rn, layer_2_rn.shape[1:3])
-        path_3 = self.motion_modules[3](path_3, frames)
+        path_3 = self.motion_modules[3](path_3, frames, train)
         path_2 = s.refinenet2(path_3, layer_2_rn, layer_1_rn.shape[1:3])
         path_1 = s.refinenet1(path_2, layer_1_rn, None)
 
@@ -182,5 +183,5 @@ class DPTDecoder(nn.Module):
             out = {k: torch.sigmoid(v) for k, v in out.items()}
         return out
 
-    def forward(self, taps, patch_hw: tuple[int, int], frames: int = 1):
-        return self.suffix(self.prefix(taps, patch_hw), frames)
+    def forward(self, taps, patch_hw: tuple[int, int], frames: int = 1, train: bool = False):
+        return self.suffix(self.prefix(taps, patch_hw), frames, train)

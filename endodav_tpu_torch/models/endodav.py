@@ -80,8 +80,10 @@ class EndoDAV(nn.Module):
     def encode(self, video: torch.Tensor):
         return self.pretrained(self.preprocess(video), ENDODAV_CONFIGS[self.encoder]["intermediate"])
 
-    def decode(self, taps, frames: int):
-        return self.head(taps, self.patch_hw, frames=frames)
+    def decode(self, taps, frames: int, train: bool = False):
+        return self.head(taps, self.patch_hw, frames=frames, train=train)
 
-    def forward(self, video: torch.Tensor):
-        return self.decode(self.encode(video), video.shape[1])
+    def forward(self, video: torch.Tensor, train: bool = False):
+        """``train`` selects the motion modules' training route, as the JAX
+        ``EndoDAV.__call__(video, train)``; gradients flow either way."""
+        return self.decode(self.encode(video), video.shape[1], train)

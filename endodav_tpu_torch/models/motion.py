@@ -1,13 +1,25 @@
 """Temporal attention ("motion") modules.
 
-Port of `endodav_tpu/models/motion.py` for the APE serving path:
-GroupNorm(32, eps 1e-6) -> proj_in -> temporal transformer blocks ->
-proj_out, with a residual over the stack.  Maps stay channels-last
-[B*T, H, W, C]; attention runs along T on [B*H*W, T, C].  Each attention
-sub-block runs the fused temporal-block kernel (LayerNorm eps 1e-5, as
-the TPU kernel); ``ff_norm`` keeps eps 1e-6.  Parameter names follow the
-reference state-dict keys (``temporal_transformer.transformer_blocks.{d}
-.attention_blocks.{i}.to_q`` ...).
+Port of `endodav_tpu/models/motion.py` (APE): GroupNorm(32, eps 1e-6)
+-> proj_in -> temporal transformer blocks -> proj_out, with a residual
+over the stack.  Maps stay channels-last [B*T, H, W, C]; attention runs
+along T on [B*H*W, T, C].  ``ff_norm`` has eps 1e-6.  Parameter names
+follow the reference state-dict keys (``temporal_transformer.
+transformer_blocks.{d}.attention_blocks.{i}.to_q`` ...).
+
+Each attention sub-block ``x + to_out(attn(LN(x) + pe))`` has two routes
+over one parameter set, chosen by the ``train`` argument that the
+trainer carries down (`train/losses.py:main_phase`), as JAX does:
+
+* ``train=False`` (serving) mirrors the JAX inference path on the TPU,
+  the fused Pallas block (`motion.py:216-218`): here the fused CUDA
+  kernel, whose LayerNorm has eps 1e-5 as the TPU kernel's.
+* ``train=True`` mirrors the JAX train step, which never fuses
+  (`motion.py:199-210`) and runs flax's ``nn.LayerNorm`` with its default
+  eps 1e-6 (`motion.py:219-221`) and plain attention along T.
+
+The two epsilons differ because the two JAX paths differ; each route
+keeps its own.
 """
 
 from __future__ import annotations
@@ -19,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from endodav_tpu_torch.kernels.flash_attention import attention_reference
 from endodav_tpu_torch.kernels.fused_temporal_block import fused_temporal_block
 from endodav_tpu_torch.models.lora import LoRADense
 
@@ -35,8 +48,11 @@ def sinusoidal_time_encoding(max_len: int, d_model: int) -> np.ndarray:
     return pe.astype(np.float32)
 
 
+TRAIN_LN_EPS = 1e-6  # flax nn.LayerNorm default, the JAX train step's norm_{i}
+
+
 class TemporalAttention(nn.Module):
-    """Self-attention along T, run as one fused residual sub-block."""
+    """Self-attention along T as one residual sub-block."""
 
     def __init__(self, dim: int, num_heads: int = 8, temporal_max_len: int = 32):
         super().__init__()
@@ -49,8 +65,10 @@ class TemporalAttention(nn.Module):
             "pe", torch.from_numpy(sinusoidal_time_encoding(temporal_max_len, dim)),
             persistent=False)
 
-    def forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, norm: nn.LayerNorm, train: bool = False) -> torch.Tensor:
         """x + Attn(norm(x) + pe) Wo + bo over x [B*, T, C]."""
+        if train:
+            return x + self._unfused(x, norm)
         t = x.shape[1]
         jax_layout = lambda lin: lin.weight.t().contiguous()  # noqa: E731  [C_in, C_out]
         out = self.to_out[0]
@@ -58,6 +76,16 @@ class TemporalAttention(nn.Module):
             x.contiguous(), norm.weight.float().contiguous(), norm.bias.float().contiguous(),
             self.pe[:t].contiguous(), jax_layout(self.to_q), jax_layout(self.to_k),
             jax_layout(self.to_v), jax_layout(out), out.bias.contiguous(), self.num_heads)
+
+    def _unfused(self, x, norm):
+        """to_out(attn(LN_1e-6(x) + pe)): the JAX train step's sub-block."""
+        bstar, t, c = x.shape
+        y = F.layer_norm(x, (c,), norm.weight, norm.bias, TRAIN_LN_EPS) + self.pe[:t].to(x.dtype)
+        heads = self.num_heads
+        q, k, v = (lin(y).reshape(bstar, t, heads, c // heads)
+                   for lin in (self.to_q, self.to_k, self.to_v))
+        out = attention_reference(q, k, v, (c // heads) ** -0.5).reshape(bstar, t, c)
+        return self.to_out[0](out)
 
 
 class GEGLU(nn.Module):
@@ -92,16 +120,16 @@ class TemporalTransformerBlock(nn.Module):
         self.attention_blocks = nn.ModuleList(
             TemporalAttention(dim, num_heads, temporal_max_len)
             for _ in range(num_attention_blocks))
-        # eps of the fused kernel's LayerNorm (1e-5) is applied inside it
+        # eps 1e-5 is the fused kernel's (serving); training uses TRAIN_LN_EPS
         self.norms = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5)
                                    for _ in range(num_attention_blocks))
         self.ff = GEGLUFeedForward(dim, lora_variant=lora_variant, lora_rank=lora_rank,
                                    lora_alpha=lora_alpha)
         self.ff_norm = nn.LayerNorm(dim, eps=1e-6)
 
-    def forward(self, x):  # [B*, T, C]
+    def forward(self, x, train: bool = False):  # [B*, T, C]
         for attn, norm in zip(self.attention_blocks, self.norms):
-            x = attn(x, norm)
+            x = attn(x, norm, train)
         return x + self.ff(self.ff_norm(x))
 
 
@@ -121,7 +149,8 @@ class TemporalTransformer(nn.Module):
 
 class TemporalModule(nn.Module):
     """GroupNorm -> proj_in -> temporal transformer -> proj_out, plus the
-    residual.  ``forward(x [B*T, H, W, C], frames)`` returns the same shape."""
+    residual.  ``forward(x [B*T, H, W, C], frames, train)`` returns the same
+    shape; ``train`` picks the attention route (see the module note)."""
 
     def __init__(self, in_channels: int, num_attention_heads: int = 8,
                  num_transformer_block: int = 1, num_attention_blocks: int = 2,
@@ -133,7 +162,7 @@ class TemporalModule(nn.Module):
             in_channels, num_attention_heads, num_transformer_block, num_attention_blocks,
             norm_num_groups, temporal_max_len, lora_variant, lora_rank, lora_alpha)
 
-    def forward(self, x: torch.Tensor, frames: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frames: int, train: bool = False) -> torch.Tensor:
         tt = self.temporal_transformer
         bt, h, w, c = x.shape
         b = bt // frames
@@ -142,6 +171,6 @@ class TemporalModule(nn.Module):
         # [(B*T), HW, C] -> [(B*HW), T, C]: time becomes the sequence axis
         y = y.reshape(b, frames, h * w, c).transpose(1, 2).reshape(b * h * w, frames, c)
         for blk in tt.transformer_blocks:
-            y = blk(y)
+            y = blk(y, train)
         y = y.reshape(b, h * w, frames, c).transpose(1, 2).reshape(bt, h * w, c)
         return tt.proj_out(y).reshape(bt, h, w, c) + x

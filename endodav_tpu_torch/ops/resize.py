@@ -8,9 +8,11 @@ exactly:
 * torch ``align_corners=False`` : src = (dst+0.5)/scale - 0.5 (scale=out/in
   unless an explicit scale factor is given), border-clamped
 * bicubic: Keys kernel with a = -0.75 (torch and OpenCV both use -0.75)
+* antialiased bilinear: triangle filter stretched by the downscale factor,
+  out-of-range taps dropped and the rest renormalized (torchvision
+  ``antialias=True``; the training pyramid)
 
-The serving path needs bilinear and bicubic only, so the JAX version's
-nearest and antialias modes are not carried over.
+The JAX version's nearest mode is not carried over.
 
 `resize2d` applies ``out = M_h @ x @ M_w^T`` over channels-last input.
 """
@@ -48,6 +50,7 @@ def interp_matrix(
     method: str = "bilinear",
     align_corners: bool = False,
     scale: float | None = None,
+    antialias: bool = False,
 ) -> np.ndarray:
     """Dense (out_size, in_size) float32 interpolation matrix.
 
@@ -55,7 +58,7 @@ def interp_matrix(
     (`F.interpolate(..., scale_factor=s)` semantics, used for the ViT
     pos-embed interpolation).
     """
-    if in_size == out_size:
+    if in_size == out_size and not antialias:
         return np.eye(out_size, dtype=np.float32)
 
     dst = np.arange(out_size, dtype=np.float64)
@@ -73,12 +76,18 @@ def interp_matrix(
     else:
         raise ValueError(f"unknown resize method: {method}")
 
-    lo = np.floor(src - support).astype(np.int64)
-    hi = np.ceil(src + support).astype(np.int64)
+    # antialias: stretch the kernel by the downscale factor
+    stretch = antialias and eff_scale < 1.0
+    kwidth, kscale = (support / eff_scale, eff_scale) if stretch else (support, 1.0)
+
+    lo = np.floor(src - kwidth).astype(np.int64)
+    hi = np.ceil(src + kwidth).astype(np.int64)
     max_taps = int((hi - lo).max()) + 1
 
     taps = lo[:, None] + np.arange(max_taps)[None, :]
-    w = kernel(taps - src[:, None])
+    w = kernel((taps - src[:, None]) * kscale)
+    if stretch:  # drop out-of-range taps and renormalize over the rest
+        w = np.where((taps < 0) | (taps > in_size - 1), 0.0, w)
     w = w / np.maximum(w.sum(axis=1, keepdims=True), 1e-12)
 
     # border clamp (replicate edge pixels), as torch/cv2 do
@@ -94,6 +103,7 @@ def resize2d(
     method: str = "bilinear",
     align_corners: bool = False,
     scale_hw: tuple[float, float] | None = None,
+    antialias: bool = False,
 ) -> torch.Tensor:
     """Resize the (H, W) dims of a channels-last tensor ``(..., H, W, C)``.
 
@@ -102,13 +112,13 @@ def resize2d(
     """
     *lead, h, w, c = x.shape
     oh, ow = size
-    if (oh, ow) == (h, w):
+    if (oh, ow) == (h, w) and not antialias:
         return x
     sh, sw = scale_hw if scale_hw is not None else (None, None)
     mdtype = x.dtype if x.dtype in (torch.bfloat16, torch.float16) else torch.float32
-    mh = torch.from_numpy(interp_matrix(h, oh, method, align_corners, sh)).to(
+    mh = torch.from_numpy(interp_matrix(h, oh, method, align_corners, sh, antialias)).to(
         device=x.device, dtype=mdtype)
-    mw = torch.from_numpy(interp_matrix(w, ow, method, align_corners, sw)).to(
+    mw = torch.from_numpy(interp_matrix(w, ow, method, align_corners, sw, antialias)).to(
         device=x.device, dtype=mdtype)
     y = x.reshape(-1, h, w, c).to(mdtype)
     # rows: [P, H] @ [B, H, W*C] -> [B, P, W*C]

@@ -1,9 +1,10 @@
-"""Evaluation flags of the port's CLIs.
+"""Flags of the port's eval CLI and trainer.
 
-The video-depth eval subset of `endodav_tpu/options.py`, with the same
-names and defaults so shell scripts carry over, plus ``--seed`` for the
-random init used when no weights are given.  ``--no_cuda`` selects the
-CPU; without it the port runs on CUDA and fails when there is no GPU.
+The video-depth eval and training subset of `endodav_tpu/options.py`,
+with the same names and defaults so shell scripts carry over, plus
+``--seed`` for the random init used when no weights are given.
+``--no_cuda`` selects the CPU; without it the port runs on CUDA and fails
+when there is no GPU.
 """
 
 from __future__ import annotations
@@ -41,18 +42,50 @@ class EndoDAVOptions:
         p.add_argument("--lora_type", type=str, choices=["lora", "dvlora", "none"],
                        default="dvlora")
         p.add_argument("--lora_rank", type=int, default=4)
+        p.add_argument("--warm_up_step", type=int, default=20000)
+        p.add_argument("--tune_depth_interval", type=int, default=-1)
         p.add_argument("--temporal_lora", action="store_true")
+        p.add_argument("--tune_temporal_interval", type=int, default=100)
+        p.add_argument("--tune_spatial_interval", type=int, default=300)
         p.add_argument("--disable_residual_block", action="store_true")
         p.add_argument("--disable_conv_head", action="store_true")
         p.add_argument("--residual_block_indexes", nargs="*", type=int, default=[2, 5, 8, 11])
         p.add_argument("--include_cls_token", type=str2bool, default=True)
+        p.add_argument("--learn_intrinsics", type=str2bool, default=True)
         p.add_argument("--min_depth", type=float, default=0.1)
         p.add_argument("--max_depth", type=float, default=150.0)
         p.add_argument("--seed", type=int, default=0,
                        help="seed of the random weights used when no weights are loaded")
 
+        # TRAINING
+        p.add_argument("--num_layers", type=int, default=18, choices=[18, 34])
+        p.add_argument("--frame_max_interval", type=int, default=1)
+        p.add_argument("--height", type=int, default=256)
+        p.add_argument("--width", type=int, default=320)
+        p.add_argument("--depth_reproj", type=float, default=0.0)
+        p.add_argument("--depth_flow", type=float, default=0.0)
+        p.add_argument("--disparity_smoothness", type=float, default=1e-3)
+        p.add_argument("--position_smoothness", type=float, default=1e-3)
+        p.add_argument("--transform_constraint", type=float, default=0.01)
+        p.add_argument("--transform_smoothness", type=float, default=0.01)
+        p.add_argument("--scales", nargs="+", type=int, default=[0, 1, 2, 3])
+        p.add_argument("--frame_ids", nargs="+", type=int, default=[0, -1, 1])
+        p.add_argument("--train_output_conv", action="store_true")
+        p.add_argument("--legacy_frozen_groups", nargs="*", type=str, default=[],
+                       help="schedule groups whose optimizer gate is forced to 0")
+        p.add_argument("--no_ssim", action="store_true")
+
+        # OPTIMIZATION
+        p.add_argument("--batch_size", type=int, default=8)
+        p.add_argument("--T", type=int, default=-1)
+        p.add_argument("--learning_rate", type=float, default=1e-4)
+        p.add_argument("--num_epochs", type=int, default=20)
+        p.add_argument("--scheduler_step_size", type=int, default=10)
+
         # SYSTEM
         p.add_argument("--no_cuda", action="store_true", help="run on the CPU")
+        p.add_argument("--num_workers", type=int, default=4)
+        p.add_argument("--log_frequency", type=int, default=400)
         p.add_argument("--load_weights_folder", type=str, default=None,
                        help="folder holding a reference-convention depth_model.pth")
 

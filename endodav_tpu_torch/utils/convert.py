@@ -2,11 +2,14 @@
 files and the port's modules.
 
 The port's parameter names are the reference torch state-dict keys, so a
-reference `depth_model.pth` loads with `load_state_dict`.  The rule table
-below is a numpy copy of the EndoDAV part of
-`endodav_tpu/utils/checkpoint.py:build_rules`; `from_jax_params` runs it
-backwards, undoing the `_conv_w`/`_convT_w`/`_lin_w` transposes.
-Msgpack checkpoints are not read here: that format needs flax.
+reference `depth_model.pth` loads with `load_state_dict`.  The rule tables
+below are numpy copies of `endodav_tpu/utils/checkpoint.py:build_rules`
+for the EndoDAV, ResNet-encoder and decoder components (the last two
+without the PoseCNN and depth-decoder rows, whose models are not
+ported); `from_jax_params` runs them backwards, undoing the
+`_conv_w`/`_convT_w`/`_lin_w` transposes, and carries flax
+``batch_stats`` into the BatchNorm buffers.  Msgpack checkpoints are not
+read here: that format needs flax.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["endodav_rules", "from_jax_params", "load_reference_pth", "SKIP_PATTERNS"]
+__all__ = ["endodav_rules", "resnet_encoder_rules", "decoder_rules", "component_rules",
+           "COMPONENT_KIND", "from_jax_params", "load_reference_pth", "SKIP_PATTERNS"]
 
 # reference keys with no counterpart in the port (checkpoint.py:_SKIP_PATTERNS)
 SKIP_PATTERNS = (
@@ -155,6 +159,68 @@ def endodav_rules():
     return _vit_rules("pretrained.", ("pretrained",)) + _dpt_rules("head.", ("head",))
 
 
+def resnet_encoder_rules():
+    """(torch_key, flax_path, layout) for a ResNetEncoder; BatchNorm
+    statistics carry their flax collection as the path's first element
+    ("batch_stats"), parameters carry none."""
+    rules = [("encoder.conv1.weight", ("conv1", "kernel"), _CONV)]
+    bn_map = [("weight", "scale", ()), ("bias", "bias", ()),
+              ("running_mean", "mean", ("batch_stats",)), ("running_var", "var", ("batch_stats",))]
+
+    def bn(pt, pf):
+        return [(pt + tn, col + pf + (fn,), None) for tn, fn, col in bn_map]
+
+    rules += bn("encoder.bn1.", ("bn1",))
+    for stage in range(1, 5):
+        for b in range(40):
+            bt, bf = f"encoder.layer{stage}.{b}.", (f"layer{stage}_{b}",)
+            for i in (1, 2, 3):
+                rules.append((bt + f"conv{i}.weight", bf + (f"conv{i}", "kernel"), _CONV))
+                rules += bn(bt + f"bn{i}.", bf + (f"bn{i}",))
+            rules.append((bt + "downsample.0.weight", bf + ("downsample_conv", "kernel"), _CONV))
+            rules += bn(bt + "downsample.1.", bf + ("downsample_bn",))
+    return rules
+
+
+def decoder_rules():
+    """(torch_key, flax_path, layout) for the pose, intrinsics, position and
+    transform decoders."""
+    rules = []
+    for n in ("squeeze", "pose_0", "pose_1", "pose_2"):
+        rules.append((f"convs.{n}.weight", (n, "kernel"), _CONV))
+        rules.append((f"convs.{n}.bias", (n, "bias"), None))
+    rules.append(("focal_length_conv.weight", ("focal_length_conv", "kernel"), _CONV))
+    rules.append(("offsets_conv.weight", ("offsets_conv", "kernel"), _CONV))
+    for i in range(5):
+        for j in range(2):
+            rt, rf = f"convs.upconv_{i}_{j}.conv.conv.", ("unet", f"upconv_{i}_{j}", "conv")
+            rules.append((rt + "weight", rf + ("kernel",), _CONV))
+            rules.append((rt + "bias", rf + ("bias",), None))
+    for s in range(4):
+        rules.append((f"convs.position_conv_{s}.weight", (f"position_conv_{s}", "kernel"), _CONV))
+        rules.append((f"convs.position_conv_{s}.bias", (f"position_conv_{s}", "bias"), None))
+        rules.append((f"convs.transform_conv_{s}.conv.weight",
+                      (f"transform_conv_{s}", "conv", "kernel"), _CONV))
+        rules.append((f"convs.transform_conv_{s}.conv.bias",
+                      (f"transform_conv_{s}", "conv", "bias"), None))
+    return rules
+
+
+# rule table of each trainer component
+COMPONENT_KIND = {
+    "depth_model": "endodav",
+    "position_encoder": "resnet_encoder", "transform_encoder": "resnet_encoder",
+    "pose_encoder": "resnet_encoder",
+    "position": "decoder", "transform": "decoder", "pose": "decoder",
+    "intrinsics_head": "decoder",
+}
+
+
+def component_rules(kind: str):
+    return {"endodav": endodav_rules, "resnet_encoder": resnet_encoder_rules,
+            "decoder": decoder_rules}[kind]()
+
+
 def _flatten(tree, prefix=()):
     out = {}
     for k, v in tree.items():
@@ -165,14 +231,20 @@ def _flatten(tree, prefix=()):
     return out
 
 
-def from_jax_params(params: dict) -> dict[str, torch.Tensor]:
-    """EndoDAV flax params (nested dict of arrays, ``variables["params"]``)
-    -> the port's state dict.  Raises if a leaf has no rule."""
+def from_jax_params(params: dict, kind: str = "endodav",
+                    batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
+    """flax params (nested dict of arrays, ``variables["params"]``) and,
+    for a ResNet encoder, its ``batch_stats`` -> the port's state dict of
+    a component of ``kind`` ("endodav", "resnet_encoder" or "decoder").
+    Raises if a leaf has no rule."""
     flat = {k: np.asarray(v, dtype=np.float32) for k, v in _flatten(params).items()}
+    if batch_stats is not None:
+        flat.update({("batch_stats",) + k: np.asarray(v, dtype=np.float32)
+                     for k, v in _flatten(batch_stats).items()})
     sd, used = {}, set()
-    for torch_key, flax_key, layout in endodav_rules():
+    for torch_key, flax_key, layout in component_rules(kind):
         if flax_key in flat:
-            sd[torch_key] = torch.from_numpy(np.ascontiguousarray(_INVERSE[layout](flat[flax_key])))
+            sd[torch_key] = torch.from_numpy(np.array(_INVERSE[layout](flat[flax_key]), order="C"))
             used.add(flax_key)
     missing = sorted("/".join(k) for k in flat if k not in used)
     if missing:
