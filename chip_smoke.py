@@ -72,9 +72,10 @@ WARP_TOL, ATOMIC_RTOL = 1e-5, 1e-4
 # (Adam's first step is lr * g / (|g| + eps): a gradient near 0 may take
 # either sign on the two devices)
 STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_UPDATE_ATOL = 1e-4, 1e-3, 1e-7
-# one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FLOP/s outside
-# the tensor cores
-HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s; dense FLOP/s of f32
+# outside the tensor cores (TF32 is off) and of bf16 on the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TRAIN_HW, TRAIN_T, SPLIT = (256, 320), 16, "splits/scared_video/train_files.txt"
 # scripts/train_video.sh with the trainer's default --lora_type dvlora and
 # --warm_up_step 2, so that steps 1-2 train the LoRA A/B and steps 3-4 the
@@ -85,18 +86,19 @@ TRAIN_FLAGS = ["--model_type", "endodav", "--encoder", "vits", "--batch_size", "
                "--tune_temporal_interval", "100", "--lora_type", "dvlora", "--warm_up_step", "2",
                "--num_workers", "2", "--seed", str(SEED)]
 # launches per training step of each kernel, from train/losses.py:
-# grid-sample forward: phase 0 registration + flow consistency, main phase
-#   registration + flow consistency + colour synthesis + depth warps = 6;
+# grid-sample forward: phase 0 registration, main phase registration +
+#   colour synthesis + depth warps = 4 (no loss reads the flow-consistency
+#   map, so the step does not compute it; check_warps still checks that
+#   warp's kernel at its shape);
 # coordinate-only backward: phase-0 registration (the position nets train)
-#   + main-phase colour synthesis = 2 (the main phase's registration and
-#   consistency warps see frozen position nets, and no loss reads the
-#   consistency map, so neither has a backward);
+#   + main-phase colour synthesis = 2 (the main phase's registration warp
+#   sees frozen position nets, so it has no backward);
 # fused backward: the main-phase depth warps = 1; splat: one occlusion map
 #   per phase = 2 (its mask is a constant to the loss: no backward);
 # flash attention: the 12 ViT blocks of the one depth forward = 12 (the
 #   backward is a plain recompute); temporal block: 0 (the training route
 #   of the motion modules, models/motion.py)
-STEP_LAUNCHES = {"grid_sample_fwd": 6, "grid_sample_bwd_coord": 2, "grid_sample_bwd_fused": 1,
+STEP_LAUNCHES = {"grid_sample_fwd": 4, "grid_sample_bwd_coord": 2, "grid_sample_bwd_fused": 1,
                  "splat": 2, "flash_attention": 12, "fused_temporal_block": 0}
 
 
@@ -144,10 +146,10 @@ def time_pair(kernel, plain, iters: int = 5) -> tuple[float, float]:
     return t["kernel"], t["plain"]
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, dtype=torch.float32) -> tuple[float, str]:
     """Least ms the card could take: the larger of the bytes over HBM rate
-    and the f32 operations over the f32 peak."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    and the operations over the peak rate of their type."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -181,7 +183,7 @@ def check_flash(device, shapes=FLASH_SHAPES, heads=6, dh=64, timing=True):
                 row["ms"], row["plain_ms"], row["library_ms"] = t["kernel"], t["plain"], t["library"]
                 # read qkv once, write the output once; QK^T and PV
                 row["bound_ms"], row["bound_by"] = bound(
-                    x.element_size() * b * n * 4 * c, 4.0 * b * heads * n * n * dh)
+                    x.element_size() * b * n * 4 * c, 4.0 * b * heads * n * n * dh, dtype)
             print(f"[flash_attention] {row}")
             require(err <= TOL[dtype], f"flash_attention {row}: max |err| above {TOL[dtype]}")
             rows.append(row)
@@ -247,7 +249,7 @@ def check_temporal(device, shapes=TEMPORAL_SHAPES, t=32, heads=8, timing=True):
                 # C x C products per token and the T x T attention per row
                 row["bound_ms"], row["bound_by"] = bound(
                     xd.element_size() * (2 * nrows * t * c + 4 * c * c + c) + 4 * (2 * c + t * c),
-                    2.0 * nrows * t * 4 * c * c + 4.0 * nrows * t * t * c)
+                    2.0 * nrows * t * 4 * c * c + 4.0 * nrows * t * t * c, dtype)
             print(f"[fused_temporal_block] {row}")
             require(err <= TOL[dtype], f"fused_temporal_block {row}: max |err| above {TOL[dtype]}")
             rows.append(row)
@@ -269,10 +271,11 @@ def _coords(g, n, h, w, device, align_corners=True):
     return fx.contiguous(), fy.contiguous()
 
 
-# the four warp calls of the training step at 256x320, batch 1, T=16, four
+# the warp calls of the training step at 256x320, batch 1, T=16, four
 # scales: (name, images, channels, img_tile, zeros mode, align_corners,
 # image gradient); the registration warp repeats colour synthesis's call
-# with flow-shaped coordinates
+# with flow-shaped coordinates; the flow-consistency warp is JAX's fourth
+# warp call, whose map no loss reads (the port's step leaves it out)
 WARP_CALLS = [("colour synthesis", 32, 3, 4, False, True, False),
               ("registration flow_warp", 32, 3, 4, False, True, False),
               ("flow_consistency", 128, 2, 1, False, False, True),
@@ -303,7 +306,7 @@ def check_warps(device, hw=TRAIN_HW):
             wrt = [x, y] + ([i] if img_grad else [])
             return (out.detach(), *torch.autograd.grad(out, wrt, cot))
 
-        got = grads(lambda i, x, y: W.grid_sample_mm(i, x, y, zeros, align, img_grad, tile))
+        got = grads(lambda i, x, y: W.grid_sample_mm(i, x, y, zeros, img_grad, tile))
         want = grads(lambda i, x, y: W.grid_sample_reference(i, x, y, zeros, tile))
         torch.cuda.synchronize(device)
         errs = [(a - b).abs().max().item() for a, b in zip(got[:3], want[:3])]
@@ -373,11 +376,28 @@ def _splat_coords(g, n, h, w, device):
             (yy + shift[:, 1]).reshape(n, -1).contiguous())
 
 
+def splat_agreement(x, y, h, w):
+    """The splat kernel's map against the plain version's on the same
+    coordinates [B, P]: the relative error, the pixels whose `occ > 0.95`
+    mask flips, and the plain map's pixels within the kernel's largest
+    error of 0.95 (where the atomics' summation order alone can flip it)."""
+    from endodav_tpu_torch.kernels import warp_matmul as W
+
+    got, want = W.splat_cuda(x, y, h, w), W.splat_reference(x, y, h, w)
+    err = (got - want).abs().max()
+    return dict(rel_occ=_rel_err(got, want), flips=int(((got > 0.95) != (want > 0.95)).sum()),
+                near=int(((want - 0.95).abs() <= err).sum()))
+
+
 def check_splat(device, n=128, hw=TRAIN_HW):
     """The splat kernel against its plain version at the training step's
     occlusion-map shape: the map, its gradient, the 0.95 mask flips, the
     times and the bound; the library yardstick is one
-    index_put_(accumulate=True) over the four corners' indices."""
+    index_put_(accumulate=True) over the four corners' indices.  The flips
+    are also counted on flow-shaped coordinates (`_coords`: a smooth
+    displacement plus noise, so the mass of neighbours overlaps), where a
+    pixel may lie within rounding of 0.95; they are reported, not required
+    to be 0 (`run_training` requires 0 on the step's own coordinates)."""
     from endodav_tpu_torch.kernels import warp_matmul as W
 
     h, w = hw
@@ -402,6 +422,11 @@ def check_splat(device, n=128, hw=TRAIN_HW):
     require(flips == 0, f"splat: {flips} pixels change sides of occ > 0.95")
     for k in ("err_dx", "err_dy"):
         require(row[k] <= WARP_TOL, f"splat: {k} {row[k]} above {WARP_TOL}")
+    fx, fy = _coords(g, n, h, w, device)
+    flow = splat_agreement(fx.reshape(n, -1), fy.reshape(n, -1), h, w)
+    row.update({f"flow_{k}": v for k, v in flow.items()})
+    require(flow["rel_occ"] <= ATOMIC_RTOL,
+            f"splat, flow-shaped coordinates: relative err {flow['rel_occ']}")
 
     # the library call's indices and values: the plain version's four corners
     x1, y1 = torch.floor(x), torch.floor(y)
@@ -591,6 +616,7 @@ def _kernel_counters():
 def run_training(device, root, steps=4, trace_dir=None):
     """`Trainer` at full width on the synthetic tree: `steps` steps of
     `train_one_batch`, each checked; returns the launches and times."""
+    from endodav_tpu_torch.ops import sampling
     from endodav_tpu_torch.train.trainer import Trainer
 
     opt = train_options(root, "--height", str(TRAIN_HW[0]), "--width", str(TRAIN_HW[1]),
@@ -606,11 +632,22 @@ def run_training(device, root, steps=4, trace_dir=None):
     counters = _kernel_counters()
     totals = dict.fromkeys(counters, 0)
     times, it = [], iter(trainer.train_loader)
-    torch.cuda.reset_peak_memory_stats(device)
+
     def adam_steps(p):
         return int(trainer.opt_main.state_of(p).get("step", 0))
 
+    # step 1's splat coordinates (both phases), for the 0.95-mask check on
+    # the step's own occupancy maps; the peak memory is read over steps
+    # 2-4, without these copies
+    splat_coords, splat = [], sampling.splat_mm
+
+    def keep_coords(x, y, height, width):
+        splat_coords.append((x.detach().clone(), y.detach().clone(), height, width))
+        return splat(x, y, height, width)
+
     for step in range(1, steps + 1):
+        if step == 1:
+            sampling.splat_mm = keep_coords
         batch = next(it)
         before = {k: p.detach().clone() for k, p in watch.items()}
         counts = {k: adam_steps(p) for k, p in watch.items()}
@@ -644,14 +681,24 @@ def run_training(device, root, steps=4, trace_dir=None):
                 f"step {step}: launches {launches}, expected {STEP_LAUNCHES}")
         for k in totals:
             totals[k] += launches[k]
+        if step == 1:
+            sampling.splat_mm = splat
+            agree = [splat_agreement(*c) for c in splat_coords]
+            del splat_coords[:]
+            print(f"[train] splat kernel vs plain on step 1's own coordinates: {agree}")
+            for a in agree:
+                require(a["rel_occ"] <= ATOMIC_RTOL and a["flips"] == 0,
+                        f"splat on the step's coordinates: {a}")
+            torch.cuda.reset_peak_memory_stats(device)
     peak = torch.cuda.max_memory_allocated(device)
     ms_step = statistics.median(times[1:])
-    print(f"[train] {ms_step:.1f} ms/step (median of steps 2-{steps}), peak memory "
-          f"{peak / 2 ** 30:.2f} GiB ({card_line()})")
+    print(f"[train] {ms_step:.1f} ms/step (median of steps 2-{steps}), peak memory of steps "
+          f"2-{steps} {peak / 2 ** 30:.2f} GiB ({card_line()})")
     if trace_dir:
         profile_step(trainer, next(it), trace_dir)
     it.close()
-    return {"launches": totals, "ms_per_step": ms_step, "step_ms": times, "peak_bytes": peak}
+    return {"launches": totals, "ms_per_step": ms_step, "step_ms": times, "peak_bytes": peak,
+            "splat": agree}
 
 
 # kernel-name fragments -> the categories of the training step's breakdown

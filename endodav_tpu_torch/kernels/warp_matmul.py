@@ -172,13 +172,13 @@ class _GridSample(torch.autograd.Function):
         return dimg, dfx, dfy, None, None, None
 
 
-def grid_sample_mm(img, fx, fy, zeros_mode: bool = False, align_corners: bool = True,
-                   img_grad: bool = True, img_tile: int = 1):
+def grid_sample_mm(img, fx, fy, zeros_mode: bool = False, img_grad: bool = True,
+                   img_tile: int = 1):
     """Bilinear sample img [B, H, W, C] at fractional pixel coords fx, fy
-    [B*img_tile, *out] (already unnormalized; ``align_corners`` only
-    names how the caller resolved them).  ``img_grad=False`` declares the
-    image gradient-free; ``img_tile > 1`` lets grid element bi sample
-    image bi // img_tile and requires ``img_grad=False``."""
+    [B*img_tile, *out] (the caller has resolved align_corners into them).
+    ``img_grad=False`` declares the image gradient-free; ``img_tile > 1``
+    lets grid element bi sample image bi // img_tile and requires
+    ``img_grad=False``."""
     if img_grad and img_tile != 1:
         raise ValueError("img_tile > 1 requires img_grad=False (grid elements sharing an "
                          "image would race on d_img)")

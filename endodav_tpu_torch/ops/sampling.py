@@ -44,8 +44,7 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, padding_mode: str = "bord
         fx = ((gx + 1.0) * w - 1.0) * 0.5
         fy = ((gy + 1.0) * h - 1.0) * 0.5
     src = img.float() if integer_img else img
-    out = grid_sample_mm(src, fx, fy, padding_mode == "zeros", align_corners, img_grad,
-                         img_tile)
+    out = grid_sample_mm(src, fx, fy, padding_mode == "zeros", img_grad, img_tile)
     return out if integer_img else out.to(img.dtype)
 
 

@@ -7,7 +7,9 @@ synthesis and the full loss).  The warps are batched exactly as in JAX:
 one `grid_sample` launch per warp kind -- registration (img_tile over the
 scales), colour synthesis (img_tile, coordinate-only backward), the
 temporal depth warps (all 16 in one launch, fused backward) -- plus one
-splat and one flow-consistency warp.
+splat.  JAX's `forward_flow_nets` also returns the bidirectional flow-
+consistency map (`occu_map_bidirection`); no loss reads it and jit drops
+it, so the port does not compute it (`ops/sampling.flow_consistency`).
 
 ``mods`` maps the trainer's component names to modules.  Which parameters
 get gradients is decided by the caller (`train/optim.set_trainable`), as
@@ -29,8 +31,8 @@ from endodav_tpu_torch.geometry.losses import abs_jax, clip_jax, reprojection_lo
 from endodav_tpu_torch.geometry.transforms import (backproject_depth, disp_to_depth,
                                                    project_3d, transformation_from_parameters)
 from endodav_tpu_torch.ops.resize import resize2d
-from endodav_tpu_torch.ops.sampling import (flow_consistency, flow_to_grid, flow_warp,
-                                            grid_sample, occlusion_mask_backward)
+from endodav_tpu_torch.ops.sampling import (flow_to_grid, flow_warp, grid_sample,
+                                            occlusion_mask_backward)
 
 __all__ = ["forward_flow_nets", "position_phase_loss", "main_phase"]
 
@@ -80,7 +82,6 @@ def forward_flow_nets(mods, batch, scales, hw, train_position: bool, train_trans
     masks, occ_maps = occlusion_mask_backward(hirs)
     _unstack_sf(out, "occu_mask_backward", masks, scales)
     _unstack_sf(out, "occu_map_backward", occ_maps, scales)
-    _unstack_sf(out, "occu_map_bidirection", flow_consistency(his, hirs), scales)
 
     color0 = batch[("color", 0, 0)]
     for f in (-1, 1):

@@ -99,7 +99,7 @@ def test_grid_sample_kernels_match_plain(c, zeros, tile, img_grad):
 
     counts = (W.grid_sample_fwd_cuda.launches, W.grid_sample_bwd_coord_cuda.launches,
               W.grid_sample_bwd_fused_cuda.launches)
-    got = run(lambda i, x, y: W.grid_sample_mm(i, x, y, zeros, True, img_grad, tile))
+    got = run(lambda i, x, y: W.grid_sample_mm(i, x, y, zeros, img_grad, tile))
     want = run(lambda i, x, y: W.grid_sample_reference(i, x, y, zeros, tile))
     torch.cuda.synchronize()
     assert W.grid_sample_fwd_cuda.launches == counts[0] + 1

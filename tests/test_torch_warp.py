@@ -92,7 +92,7 @@ def test_grid_sample_matches_pallas_interpret(c, zeros, ac, tile):
         jgi, jgg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(img), jnp.asarray(grid))
     ti, tg = _t(img), _t(grid)
     tfx, tfy = _frac(tg, h, w, ac)
-    got = tgrid_sample_mm(ti, tfx, tfy, zeros, ac, img_grad, tile)
+    got = tgrid_sample_mm(ti, tfx, tfy, zeros, img_grad, tile)
     (got * torch.from_numpy(wgt)).sum().backward()
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=TOL, rtol=TOL)
     np.testing.assert_allclose(tg.grad.numpy(), np.asarray(jgg), atol=KERNEL_GRAD_TOL,
