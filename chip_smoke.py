@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path and training step on one CUDA card.
 
-    python3 chip_smoke.py [--profile-step TRACE_DIR]
+    python3 chip_smoke.py [--profile-step TRACE_DIR] [--profile-serving TRACE_DIR]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from `endodav_tpu_torch/csrc/` with nvcc;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the serving path and of the training step: flash attention
-     (f32, bf16, and its gradient) and the fused temporal block in f32 and
-     bf16; the grid-sample forward and both backward kernels at the four
-     warp calls of the training step, and the forward splat; with the
-     kernel's, the plain version's and one PyTorch call's times;
+     (f32, bf16, and its gradient), the fused temporal block and its
+     head-grouped kernel (vitl's C=1024) in f32 and bf16, the fused MLP at
+     vits and vitl widths, the int8 serving GEMM (`int8_dense`); the
+     grid-sample forward and both backward kernels at the four warp calls
+     of the training step, and the forward splat; with the kernel's, the
+     plain version's and one PyTorch call's times;
   4. the full-width vits EndoDAV (random weights from a seed) on one
-     8-frame 224x280 clip, on the card with the kernels against the CPU
+     8-frame 224x280 clip, and the full-width merged vitl on one 4-frame
+     112x140 clip, on the card with the kernels (int8 off) against the CPU
      with the plain versions;
   5. the serving path as the CLI runs it (engine.build_depth_model ->
-     depth_window_forward -> evaluate_video_sequences) over two synthetic
-     SCARED-like sequences, in the benchmark's headline configuration and
-     in the CLI default, with finite metrics and the kernels' launch
-     counts checked;
+     depth_window_forward -> evaluate_video_sequences) over synthetic
+     SCARED-like 64-frame sequences: vitl 518x644 merged (dedup in taps
+     mode, int8 GEMMs, device stitch), the vits 518x644 headline (dedup in
+     prefix mode) without and with ENDODAV_FUSED_MLP=1, and the 224x280
+     CLI default (window path); finite metrics and the launches of every
+     serving kernel per encode batch and per window chunk checked;
   6. one small training step (64x96 frames, T=4, ViT input 56x70) on the
      card with the kernels against the same step on the CPU with the
      plain versions: both phase losses, the gradients and the updated
@@ -34,7 +39,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
   8. a JSON line per kernel and, last, the device line.
 
 ``--profile-step TRACE_DIR`` adds a `torch.profiler` run of one more
-full-width step: device time by kernel name, and the Chrome trace in
+full-width step, ``--profile-serving TRACE_DIR`` one of vitl serving over
+a 64-frame sequence: device time by kernel name, and the Chrome trace in
 TRACE_DIR.
 """
 
@@ -59,8 +65,20 @@ SEED = 0
 # mantissa, compared with the plain version in f32 on the same inputs.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 MODEL_TOL = 2e-4  # whole model, card (kernels, TF32 off) vs CPU (plain versions)
-FLASH_SHAPES = [(64, 321), (64, 1703)]  # (B, N): chunk_windows=2 x 32 frames; 224x280, 518x644
-TEMPORAL_SHAPES = [(192, 1702), (384, 437), (64, 6808)]  # (C, rows) of one 518x644 window
+# flash attention (B, N): 224x280 window chunks (2 x 32 frames); 518x644
+# window chunks and dedup encode batches of 32 frames at vits (H=6) and
+# vitl (H=16)
+FLASH_SHAPES = [(64, 321, 6), (64, 1703, 6), (32, 1703, 16)]
+# temporal block (C, rows) of one 518x644 window: vits's four motion
+# modules; vitl's C=1024 ones (head-grouped kernel) and its C=256 ones
+TEMPORAL_SHAPES = [(192, 1702), (384, 437), (64, 6808), (1024, 1702), (1024, 437), (256, 1702),
+                   (256, 6808)]
+# fused MLP (C, H, rows): a dedup encode batch of 32 518x644 frames
+MLP_SHAPES = [(384, 1536, 32 * 1703), (1024, 4096, 32 * 1703)]
+# the serving configurations of the main path: the 518x644 headline, and
+# vitl at it as the CLI serves it (dedup in taps mode, int8 by default)
+HEADLINE = ["--depth_image_shape", "518", "644", "--merge_lora", "--disable_residual_block"]
+VITL_ARGS = ["--encoder", "vitl", *HEADLINE, "--chunk_windows", "1", "--fast_stitch"]
 # warps: outputs and coordinate gradients to 1e-5 of max(1, their largest
 # entry) (one thread computes what the plain version computes, up to FMA
 # contraction); d_img and the splat map are summed with atomics in an order
@@ -119,8 +137,8 @@ def card_line() -> str:
 
 def time_calls(fns: dict, iters: int = 5) -> dict:
     """Mean ms per call of each function (CUDA events), run in turns in the
-    given order and then reversed (plain, kernel, kernel, plain) after one
-    warm-up call each."""
+    given order and then reversed (plain, kernel, kernel, plain) after two
+    warm-up calls each."""
     def run(fn):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -131,7 +149,7 @@ def time_calls(fns: dict, iters: int = 5) -> dict:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    for fn in fns.values():
+    for fn in list(fns.values()) * 2:
         fn()
     torch.cuda.synchronize()
     order = list(fns) + list(reversed(fns))
@@ -153,12 +171,12 @@ def bound(nbytes: float, flops: float, dtype=torch.float32) -> tuple[float, str]
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def check_flash(device, shapes=FLASH_SHAPES, heads=6, dh=64, timing=True):
+def check_flash(device, shapes=FLASH_SHAPES, dh=64, timing=True):
     from endodav_tpu_torch.kernels.flash_attention import attention_reference, qkv_attention
 
     rows = []
     g = torch.Generator(device=device).manual_seed(SEED)
-    for b, n in shapes:
+    for b, n, heads in shapes:
         c = heads * dh
         qkv = torch.randn((b, n, 3 * c), generator=g, device=device)
         for dtype in (torch.float32, torch.bfloat16):
@@ -215,14 +233,32 @@ def check_flash_grad(device, b=16, n=321, heads=6, dh=64):
     return err
 
 
+def unfused_block(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
+    """The library yardstick of the temporal block: the sub-block in
+    PyTorch's own calls (layer_norm, linear, scaled_dot_product_attention)."""
+    import torch.nn.functional as F
+
+    b, t, c = x.shape
+    y = (F.layer_norm(x.float(), (c,), gamma, beta, 1e-5) + pe).to(x.dtype)
+    q, k, v = (F.linear(y, w.t()).reshape(b, t, heads, c // heads).transpose(1, 2)
+               for w in (wq, wk, wv))
+    o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, t, c)
+    return x + F.linear(o, wo.t(), bo)
+
+
 def check_temporal(device, shapes=TEMPORAL_SHAPES, t=32, heads=8, timing=True):
-    from endodav_tpu_torch.kernels.fused_temporal_block import (fused_temporal_block,
+    """The temporal block's kernels (C < 512 the block kernel, C >= 512 the
+    head-grouped kernel) against the plain versions, in f32 and bf16."""
+    from endodav_tpu_torch.kernels.fused_temporal_block import (GROUPED_MIN_C,
+                                                                 fused_temporal_block,
+                                                                 grouped_reference_block,
                                                                  reference_block)
     from endodav_tpu_torch.models.motion import sinusoidal_time_encoding
 
     rows = []
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     for c, nrows in shapes:
+        plain = grouped_reference_block if c >= GROUPED_MIN_C else reference_block
         f = lambda *s, sd=1.0: torch.randn(s, generator=g, device=device) * sd  # noqa: E731
         # |out| stays below 4, where bf16 output rounding is at most 2^-7
         x = f(nrows, t, c, sd=0.5)
@@ -234,26 +270,107 @@ def check_temporal(device, shapes=TEMPORAL_SHAPES, t=32, heads=8, timing=True):
             args = [a.to(dtype) for a in (x, *ws, bo)]
             xd, wq, wk, wv, wo, bod = args
             ref_args = [a.float() for a in args]
-            want = reference_block(ref_args[0], gamma, beta, pe, *ref_args[1:5], ref_args[5],
-                                   heads)
+            want = plain(ref_args[0], gamma, beta, pe, *ref_args[1:5], ref_args[5], heads)
             got = fused_temporal_block(xd, gamma, beta, pe, wq, wk, wv, wo, bod, heads).float()
             torch.cuda.synchronize(device)
             err = (got - want).abs().max().item()
-            row = dict(shape=f"rows={nrows} T={t} C={c}", dtype=str(dtype)[6:], err=err)
+            tol = TOL[dtype]
+            row = dict(shape=f"rows={nrows} T={t} C={c}", dtype=str(dtype)[6:], err=err,
+                       kernel="grouped" if c >= GROUPED_MIN_C else "block")
             if timing:
-                row["ms"], row["plain_ms"] = time_pair(
-                    lambda: fused_temporal_block(xd, gamma, beta, pe, wq, wk, wv, wo, bod, heads),
-                    lambda: reference_block(xd, gamma, beta, pe, wq, wk, wv, wo, bod, heads))
-                row["library_ms"] = None  # no one PyTorch call computes the block
+                t_ = time_calls({
+                    "plain": lambda: plain(xd, gamma, beta, pe, wq, wk, wv, wo, bod, heads),
+                    "kernel": lambda: fused_temporal_block(xd, gamma, beta, pe, wq, wk, wv, wo,
+                                                           bod, heads),
+                    "library": lambda: unfused_block(xd, gamma, beta, pe, wq, wk, wv, wo, bod,
+                                                     heads)})
+                row["ms"], row["plain_ms"], row["library_ms"] = (t_["kernel"], t_["plain"],
+                                                                 t_["library"])
                 # x read and the output written once, the weights once; four
                 # C x C products per token and the T x T attention per row
                 row["bound_ms"], row["bound_by"] = bound(
                     xd.element_size() * (2 * nrows * t * c + 4 * c * c + c) + 4 * (2 * c + t * c),
                     2.0 * nrows * t * 4 * c * c + 4.0 * nrows * t * t * c, dtype)
             print(f"[fused_temporal_block] {row}")
-            require(err <= TOL[dtype], f"fused_temporal_block {row}: max |err| above {TOL[dtype]}")
+            require(err <= tol, f"fused_temporal_block {row}: max |err| above {tol}")
             rows.append(row)
     return rows
+
+
+def check_fused_mlp(device, shapes=MLP_SHAPES, timing=True):
+    """The fused MLP against its plain version at vits and vitl widths, f32
+    and bf16, to TOL of max(1, the largest entry); the library yardstick is
+    F.linear + F.gelu + F.linear on torch-layout copies of the weights."""
+    import torch.nn.functional as F
+
+    from endodav_tpu_torch.kernels.fused_mlp import fused_mlp, mlp_reference
+
+    rows = []
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    for c, h, nrows in shapes:
+        x = torch.randn((nrows, c), generator=g, device=device)
+        w1 = torch.randn((c, h), generator=g, device=device) * c ** -0.5
+        w2 = torch.randn((h, c), generator=g, device=device) * h ** -0.5
+        b1 = torch.randn(h, generator=g, device=device) * 0.1
+        b2 = torch.randn(c, generator=g, device=device) * 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, w1d, w2d = x.to(dtype), w1.to(dtype), w2.to(dtype)
+            want = mlp_reference(xd, w1d, b1, w2d, b2).float()
+            got = fused_mlp(xd, w1d, b1, w2d, b2).float()
+            torch.cuda.synchronize(device)
+            err = (got - want).abs().max().item()
+            tol = TOL[dtype] * max(1.0, want.abs().max().item())
+            row = dict(shape=f"rows={nrows} {c}->{h}->{c}", dtype=str(dtype)[6:], err=err)
+            if timing:
+                w1t, w2t = w1d.t().contiguous(), w2d.t().contiguous()
+                b1d, b2d = b1.to(dtype), b2.to(dtype)
+                t_ = time_calls({
+                    "plain": lambda: mlp_reference(xd, w1d, b1, w2d, b2),
+                    "kernel": lambda: fused_mlp(xd, w1d, b1, w2d, b2),
+                    "library": lambda: F.linear(F.gelu(F.linear(xd, w1t, b1d)), w2t, b2d)})
+                row["ms"], row["plain_ms"], row["library_ms"] = (t_["kernel"], t_["plain"],
+                                                                 t_["library"])
+                # x read and the output written once, the weights and biases
+                # once; two products
+                row["bound_ms"], row["bound_by"] = bound(
+                    xd.element_size() * (2 * nrows * c + 2 * c * h) + 4 * (h + c),
+                    4.0 * nrows * c * h, dtype)
+            print(f"[fused_mlp] {row}")
+            require(err <= tol, f"fused_mlp {row}: max |err| above {tol}")
+            rows.append(row)
+    return rows
+
+
+def check_int8(device, rows=32 * 1703, c=1024):
+    """`int8_dense` at vitl's qkv projection of a 518x644 encode batch: the
+    card's int8 product (torch._int_mm) equals the plain int64 product of
+    the same int8 operands, and the whole function its plain version with
+    that product; the deviation from f32 and the times are reported."""
+    import torch.nn.functional as F
+
+    from endodav_tpu_torch.ops.quant import int8_dense, int_matmul, quantize_rows, quantize_weight
+
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    x = torch.randn((rows, c), generator=g, device=device)
+    w = torch.randn((3 * c, c), generator=g, device=device) * c ** -0.5
+    b = torch.randn(3 * c, generator=g, device=device) * 0.1
+    x8, xs = quantize_rows(x)
+    w8, ws = quantize_weight(w)
+    acc = int_matmul(x8, w8)
+    acc_plain = int_matmul(x8.cpu(), w8.cpu())
+    torch.cuda.synchronize(device)
+    acc_err = (acc.cpu().long() - acc_plain).abs().max().item()
+    want = acc_plain.to(device).float() * xs * ws + b
+    got = int8_dense(x, w, b)
+    err = (got - want).abs().max().item()
+    t_ = time_calls({"plain": lambda: F.linear(x, w, b), "kernel": lambda: int8_dense(x, w, b)})
+    row = dict(shape=f"[{rows},{c}] x [{3 * c},{c}]^T", acc_err=acc_err, err=err,
+               dev_from_f32=(got - F.linear(x, w, b)).abs().max().item(), ms=t_["kernel"],
+               f32_linear_ms=t_["plain"])
+    print(f"[int8_dense] {row}")
+    require(acc_err == 0, f"int8 product differs from the exact one by {acc_err}")
+    require(err <= 1e-6 * max(1.0, want.abs().max().item()), f"int8_dense {row}")
+    return row
 
 
 def _rel_err(got, want):
@@ -455,11 +572,12 @@ def eval_options(args):
     return EndoDAVOptions().parse(["--seed", str(SEED), *args])
 
 
-def check_whole_model(device, image_shape=(224, 280), frames=8):
-    """Full-width vits on the card (kernels) vs the CPU (plain versions)."""
+def check_whole_model(device, args=(), image_shape=(224, 280), frames=8):
+    """A full-width EndoDAV on the card (kernels; int8 off, as
+    build_depth_model leaves it) vs the CPU (plain versions)."""
     from endodav_tpu_torch.eval import engine
 
-    opt = eval_options(["--no_cuda", "--depth_image_shape", *map(str, image_shape)])
+    opt = eval_options(["--no_cuda", "--depth_image_shape", *map(str, image_shape), *args])
     cpu_model = engine.build_depth_model(opt, torch.device("cpu"))
     gpu_model = copy.deepcopy(cpu_model).to(device)
     rng = np.random.default_rng(SEED)
@@ -468,10 +586,12 @@ def check_whole_model(device, image_shape=(224, 280), frames=8):
         want = cpu_model(video)
         got = gpu_model(video.to(device))
     errs = {s: (got[("disp", s)].cpu() - want[("disp", s)]).abs().max().item() for s in range(4)}
-    print(f"[whole model] vits {image_shape} T={frames}: max |Δdisp| per scale {errs}")
+    print(f"[whole model] {opt.encoder} {' '.join(args)} {image_shape} T={frames}: "
+          f"max |Δdisp| per scale {errs}")
     for s, e in errs.items():
         require(np.isfinite(e) and e <= MODEL_TOL,
-                f"whole model scale {s}: max |Δdisp| {e} above {MODEL_TOL}")
+                f"whole model {opt.encoder} scale {s}: max |Δdisp| {e} above {MODEL_TOL}")
+    del cpu_model, gpu_model
     return max(errs.values())
 
 
@@ -496,39 +616,84 @@ def synthetic_sequences(n_seq=2, n_frames=64, h=512, w=640):
     return seqs
 
 
-def run_main_path(args, sequences, device):
-    """build_depth_model -> depth_window_forward -> evaluate_video_sequences,
-    with the kernels' launch counts read around the run."""
+def _serving_counters():
+    from endodav_tpu_torch.kernels import fused_temporal_block as ftb
+    from endodav_tpu_torch.kernels.flash_attention import qkv_attention
+    from endodav_tpu_torch.kernels.fused_mlp import fused_mlp
+
+    return {"flash_attention": qkv_attention, "fused_temporal_block": ftb.fused_temporal_block,
+            "fused_temporal_block_grouped": ftb.launch_grouped, "fused_mlp": fused_mlp}
+
+
+def expected_serving_launches(opt, forward, sequences):
+    """Launches of each serving kernel in one run, from the configuration:
+    per encode batch (dedup) or per window chunk (window path) one flash
+    attention a ViT block, and one fused MLP a block where it routes; per
+    window chunk two temporal blocks a motion module, on the grouped kernel
+    where the module has C >= 512."""
+    from endodav_tpu_torch.eval.video_inference import window_indices
+    from endodav_tpu_torch.kernels.fused_temporal_block import GROUPED_MIN_C
+    from endodav_tpu_torch.models.endodav import ENDODAV_CONFIGS
+    from endodav_tpu_torch.models.vit import VIT_CONFIGS
+    from endodav_tpu_torch.ops.quant import resolve_int8
+    from endodav_tpu_torch.utils.envflags import env_on
+
+    depth = VIT_CONFIGS[opt.encoder]["depth"]
+    cfg = ENDODAV_CONFIGS[opt.encoder]
+    widths = (cfg["out_channels"][2], cfg["out_channels"][3], cfg["features"], cfg["features"])
+    grouped = sum(2 for c in widths if c >= GROUPED_MIN_C)
+    chunks = sum(-(-len(window_indices(len(s["colors"]))) // opt.chunk_windows) for s in sequences)
+    dedup = forward.dedup
+    batches = (sum(-(-len(s["colors"]) // dedup.encode_batch_for(len(s["colors"])))
+                   for s in sequences) if dedup is not None else chunks)
+    mlp = (env_on("ENDODAV_FUSED_MLP") and forward.model.lora_type == "none"
+           and not resolve_int8(forward.model.int8_serving))
+    return ({"flash_attention": depth * batches, "fused_temporal_block": (8 - grouped) * chunks,
+             "fused_temporal_block_grouped": grouped * chunks,
+             "fused_mlp": depth * batches if mlp else 0},
+            dict(chunks=chunks, encode_batches=batches if dedup is not None else 0))
+
+
+def run_main_path(args, sequences, device, env=None):
+    """build_depth_model -> depth_window_forward -> evaluate_video_sequences
+    with ``env`` set for the run, the serving kernels' launch counts set
+    to 0 just before and read just after, and checked."""
     from endodav_tpu_torch.cli.evaluate_depth_video import report
     from endodav_tpu_torch.eval import engine
-    from endodav_tpu_torch.eval.video_inference import window_indices
-    from endodav_tpu_torch.kernels.flash_attention import qkv_attention
-    from endodav_tpu_torch.kernels.fused_temporal_block import fused_temporal_block
 
-    opt = eval_options(args)
-    forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
-    qkv_attention.launches = 0
-    fused_temporal_block.launches = 0
-    t0 = time.perf_counter()
-    result = engine.evaluate_video_sequences(opt, sequences, forward, device=device)
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention": qkv_attention.launches,
-                "fused_temporal_block": fused_temporal_block.launches}
-    chunks = sum(-(-len(window_indices(len(s["colors"]))) // opt.chunk_windows)
-                 for s in sequences)
+    env = env or {}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        opt = eval_options(args)
+        forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
+        counters = _serving_counters()
+        torch.cuda.reset_peak_memory_stats(device)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = engine.evaluate_video_sequences(opt, sequences, forward, device=device)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        expect, passes = expected_serving_launches(opt, forward, sequences)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    name = " ".join(f"{k}={v}" for k, v in env.items()) + " " + (" ".join(args) or "CLI default")
     for line in report(result):
-        print(f"[main path {' '.join(args) or 'CLI default'}] {line}")
-    print(f"[main path] chunks={chunks} launches={launches} wall={wall:.3f} s")
+        print(f"[main path {name.strip()}] {line}")
+    print(f"[main path] {passes} dedup={forward.dedup is not None} "
+          f"prefix_mode={getattr(forward.dedup, 'prefix_mode', None)} "
+          f"int8={forward.model.int8_serving} launches={launches} wall={wall:.3f} s "
+          f"peak {torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB")
     vals = np.concatenate([result["mean_errors"], result["mean_temporal"]])
     require(bool(np.all(np.isfinite(vals))), f"main path metrics not finite: {vals}")
-    require(launches["flash_attention"] == 12 * chunks,
-            f"flash_attention launched {launches['flash_attention']} times, "
-            f"expected 12 per chunk x {chunks}")
-    require(launches["fused_temporal_block"] == 8 * chunks,
-            f"fused_temporal_block launched {launches['fused_temporal_block']} times, "
-            f"expected 8 per chunk x {chunks}")
-    return {"args": args, "ms_per_frame": result["mean_infer_ms"], "launches": launches,
-            "chunks": chunks, "metrics": [float(v) for v in vals]}
+    require(launches == expect, f"main path {name}: launches {launches}, expected {expect}")
+    return {"args": args, "name": name.strip(), "ms_per_frame": result["mean_infer_ms"],
+            "launches": launches, **passes, "metrics": [float(v) for v in vals]}
 
 
 def write_scared_tree(root, n_frames=24, h=512, w=640, step=(3, 4)):
@@ -701,7 +866,7 @@ def run_training(device, root, steps=4, trace_dir=None):
             "splat": agree}
 
 
-# kernel-name fragments -> the categories of the training step's breakdown
+# kernel-name fragments -> the categories of the profiles' breakdowns
 PROFILE_CATEGORIES = [
     ("port: grid_sample_fwd", ("grid_sample_fwd_kernel",)),
     ("port: grid_sample_bwd coord-only",
@@ -709,12 +874,15 @@ PROFILE_CATEGORIES = [
     ("port: grid_sample_bwd fused", ("grid_sample_bwd_kernel",)),
     ("port: splat", ("splat_kernel",)),
     ("port: flash attention", ("::attn_kernel<",)),
+    ("port: grouped temporal block", ("::grouped_kernel<",)),
     ("port: fused temporal block", ("::block_kernel<",)),
+    ("port: fused MLP", ("::mlp_kernel<",)),
     ("cuDNN conv data grad", ("dgrad",)),
     ("cuDNN conv weight grad", ("wgrad", "winogradWgrad")),
     ("cuDNN conv layout transposes", ("nhwcToNchw", "nchwToNhwc")),
     ("cuDNN FFT convs", ("fft2d", "fft", "pointwise_mult_and_sum_complex", "cf32cf32")),
     ("cuDNN conv forward", ("fprop", "convolve", "conv2d", "implicit_convolve")),
+    ("int8 GEMM (torch._int_mm)", ("i8", "s8", "int8", "imma")),
     ("cuBLAS/CUTLASS GEMM", ("gemm", "gemv", "sgemm")),
     ("host-to-device and other copies", ("Memcpy",)),
     ("memset", ("Memset",)),
@@ -725,22 +893,22 @@ PROFILE_CATEGORIES = [
 ]
 
 
-def profile_step(trainer, batch, trace_dir):
-    """One more step under torch.profiler: device time by category and by
-    kernel name, the device's idle share of the step, and the Chrome
-    trace in ``trace_dir``."""
+def profile_run(label, fn, trace_dir, trace_name):
+    """``fn()`` under torch.profiler: device time by category and by kernel
+    name, the device's idle share of the run, and the Chrome trace in
+    ``trace_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_one_batch(batch)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
     busy = sum(e.device_time_total for e in kernels) / 1e3
-    print(f"[profile] step wall {wall:.1f} ms, device time {busy:.1f} ms, device idle "
+    print(f"[profile {label}] wall {wall:.1f} ms, device time {busy:.1f} ms, device idle "
           f"{100 * (1 - busy / wall):.1f}% ({card_line()})")
     cats = {}
     for e in kernels:
@@ -749,11 +917,41 @@ def profile_step(trainer, batch, trace_dir):
         ms, n = cats.get(cat, (0.0, 0))
         cats[cat] = (ms + e.device_time_total / 1e3, n + e.count)
     for cat, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile] {ms:9.3f} ms {n:6d}x  {cat}")
+        print(f"[profile {label}] {ms:9.3f} ms {n:6d}x  {cat}")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:25]:
-        print(f"[profile] kernel {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
+        print(f"[profile {label}] kernel {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
+              f"{e.key[:100]}")
     os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "train_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(trace_dir, trace_name))
+
+
+def profile_step(trainer, batch, trace_dir):
+    """One more training step under the profiler."""
+    profile_run("train step", lambda: trainer.train_one_batch(batch), trace_dir,
+                "train_step_trace.json")
+
+
+def profile_serving(device, sequence, trace_dir):
+    """Serving of one 64-frame sequence under the profiler, after one
+    warm-up run, in the main path's vitl configuration (device stitch)
+    and in the vits headline's (host stitch, its device->host copies
+    included): inference alone, without the metrics."""
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.eval.video_inference import infer_video_depth
+
+    for label, args in (("vitl serving", VITL_ARGS),
+                        ("vits serving", [*HEADLINE, "--chunk_windows", "2"])):
+        opt = eval_options(args)
+        forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
+
+        def run():
+            return infer_video_depth(forward, sequence["colors"], tuple(opt.depth_image_shape),
+                                     opt.chunk_windows, device,
+                                     "device" if opt.fast_stitch else "host", forward.dedup)
+
+        run()
+        profile_run(label, run, trace_dir, f"{label.replace(' ', '_')}_trace.json")
+        del forward
 
 
 def main() -> int:
@@ -781,24 +979,31 @@ def main() -> int:
     flash_rows = check_flash(device)
     flash_grad_err = check_flash_grad(device)
     temporal_rows = check_temporal(device)
+    mlp_rows = check_fused_mlp(device)
+    int8_row = check_int8(device)
     warp_rows = check_warps(device)
     splat_row = check_splat(device)
-    model_err = check_whole_model(device)
+    model_err = max(check_whole_model(device),
+                    check_whole_model(device, ["--encoder", "vitl", "--merge_lora",
+                                               "--disable_residual_block"], (112, 140), 4))
 
     sequences = synthetic_sequences()
-    runs = [run_main_path(["--depth_image_shape", "518", "644", "--merge_lora",
-                           "--disable_residual_block", "--chunk_windows", "2"], sequences, device),
+    runs = [run_main_path(VITL_ARGS, sequences[:1], device),
+            run_main_path([*HEADLINE, "--chunk_windows", "2"], sequences, device),
+            run_main_path([*HEADLINE, "--chunk_windows", "2"], sequences, device,
+                          env={"ENDODAV_FUSED_MLP": "1"}),
             run_main_path([], sequences, device)]
     for r in runs:
-        print(f"[main path] {' '.join(r['args']) or 'CLI default'}: "
-              f"{r['ms_per_frame']:.3f} ms/frame ({card})")
+        print(f"[main path] {r['name']}: {r['ms_per_frame']:.3f} ms/frame ({card})")
+    args = sys.argv[1:]
+    if "--profile-serving" in args:
+        profile_serving(device, sequences[0], args[args.index("--profile-serving") + 1])
 
     with tempfile.TemporaryDirectory(prefix="scared_synth_", dir=os.getcwd()) as root:
         t0 = time.perf_counter()
         write_scared_tree(root)
         print(f"[train] synthetic SCARED tree written in {time.perf_counter() - t0:.1f} s")
         check_small_step(device, root)
-        args = sys.argv[1:]
         trace_dir = args[args.index("--profile-step") + 1] if "--profile-step" in args else None
         train = run_training(device, root, trace_dir=trace_dir)
 
@@ -815,6 +1020,8 @@ def main() -> int:
         return sum(r["launches"][name] for r in runs)
 
     f32 = lambda rows: max(r["err"] for r in rows if r["dtype"] == "float32")  # noqa: E731
+    block_rows = [r for r in temporal_rows if r["kernel"] == "block"]
+    grouped_rows = [r for r in temporal_rows if r["kernel"] == "grouped"]
     colour = next(r for r in warp_rows if r["call"] == "colour synthesis")
     depth = next(r for r in warp_rows if r["call"] == "depth warps")
     trained = train["launches"]
@@ -828,8 +1035,15 @@ def main() -> int:
         entry("fused_temporal_block", "endodav_tpu_torch/csrc/fused_temporal_block.cu",
               "endodav_tpu/kernels/fused_temporal_block.py:76",
               served("fused_temporal_block") + trained["fused_temporal_block"],
-              f32(temporal_rows), head_of(temporal_rows, "rows=1702 T=32 C=192"),
+              f32(block_rows), head_of(block_rows, "rows=1702 T=32 C=192"),
               "rows=1702 T=32 C=192"),
+        entry("fused_temporal_block_grouped", "endodav_tpu_torch/csrc/fused_temporal_block.cu",
+              "endodav_tpu/kernels/fused_temporal_block.py:120",
+              served("fused_temporal_block_grouped"), f32(grouped_rows),
+              head_of(grouped_rows, "rows=1702 T=32 C=1024"), "rows=1702 T=32 C=1024"),
+        entry("fused_mlp", "endodav_tpu_torch/csrc/fused_mlp.cu",
+              "endodav_tpu/kernels/fused_mlp.py:73", served("fused_mlp"), f32(mlp_rows),
+              head_of(mlp_rows, "rows=54496 384->1536->384"), "rows=54496 384->1536->384"),
         entry("grid_sample_fwd", warp_src, f"{warp_py}:327", trained["grid_sample_fwd"],
               max(r["err_out"] for r in warp_rows), colour["fwd"],
               f"colour synthesis, {colour['shape']}"),
@@ -846,6 +1060,8 @@ def main() -> int:
               max(splat_row["err_occ"], splat_row["err_dx"], splat_row["err_dy"]), splat_row,
               splat_row["shape"]),
     ]
+    print(f"[summary] int8_dense {int8_row['ms']:.3f} ms vs f32 linear "
+          f"{int8_row['f32_linear_ms']:.3f} ms at {int8_row['shape']} ({card})")
     print(f"[summary] whole model max |Δdisp| {model_err:.3e}; training "
           f"{train['ms_per_step']:.1f} ms/step, peak {train['peak_bytes'] / 2 ** 30:.2f} GiB")
     print(card_line())

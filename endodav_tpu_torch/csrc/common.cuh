@@ -36,4 +36,67 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Register tile of the SIMT products: RM token rows x RN output columns a thread.
+constexpr int RM = 8;
+constexpr int RN = 4;
+
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(v[0]);
+  const float2 b = __bfloat1622float2(v[1]);
+  out[0] = a.x;
+  out[1] = a.y;
+  out[2] = b.x;
+  out[3] = b.y;
+}
+
+// acc[i][n] = sum_k a[i*lda + k] * w[k*ldw + n] for an RM x RN tile:
+// a (shared memory, rows 16-byte aligned) is read as float4 along k, and
+// each row of 4 weights (global memory, JAX layout [C_in, C_out]) feeds
+// RM*RN FMAs.  The next 4 weight rows are loaded while the current ones
+// are used, so a load from L2 overlaps 128 FMAs (a block of these kernels
+// often has an SM to itself: few warps to hide the latency otherwise).
+// kdim is a multiple of 4.
+template <typename T>
+__device__ __forceinline__ void tile_product(const float* a, int lda, const T* w, int ldw,
+                                             int kdim, float (&acc)[RM][RN]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int n = 0; n < RN; ++n) acc[i][n] = 0.f;
+  float wnext[4][RN];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) load4(w + (long long)u * ldw, wnext[u]);
+  for (int k = 0; k < kdim; k += 4) {
+    float wv[4][RN];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int n = 0; n < RN; ++n) wv[u][n] = wnext[u][n];
+    if (k + 4 < kdim) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) load4(w + (long long)(k + 4 + u) * ldw, wnext[u]);
+    }
+    float av[RM][4];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) load4(a + i * lda + k, av[i]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int n = 0; n < RN; ++n) acc[i][n] = fmaf(av[i][u], wv[u][n], acc[i][n]);
+  }
+}
+
 }  // namespace endodav

@@ -36,6 +36,26 @@
 // the LN buffer, which the projections no longer need.  The
 // out-projection then adds bo and the residual x and writes the rows.
 // Head widths 8, 24 and 48 (vits) need no tensor-core tile shape.
+//
+// grouped_kernel replaces endodav_tpu/kernels/fused_temporal_block.py:
+// _grouped_kernel (:120), launched by _forward_grouped (:206, pallas_call
+// :226) for C >= 512 (vitl's C=1024 motion modules): the same function,
+// with the heads split into G groups (C/256 groups, halved until they
+// divide the heads; 4 groups of 2 heads of width 128 at vitl).  At C=1024
+// the ungrouped layout needs 525 KB of shared memory a block; here one
+// block owns one row [T, C] and keeps LN(x)+pe of the whole row (128 KB
+// at T=32, f32) and q|k|v of ONE group (96 KB) in shared memory, 225.5 KB
+// of the 227 KB a block may use.  A loop over the groups inside the block
+// takes the place of the TPU grid's sequential group axis: per group the
+// q|k|v panels are projected from the resident LN(x), the group's heads
+// attend (the output overwrites the group's q columns, which no later
+// step reads), and the out-projection partial sum for the rows Wo[g*Cg:
+// (g+1)*Cg] is added, in f32 and in group order, to a scratch row in
+// device memory that only this thread ever touches (same item-to-thread
+// map in every group), as JAX sums the partials in VMEM scratch: no
+// atomics, the same bits every run.  The last group adds x and bo and
+// writes the output.  Bound and tiling as above: SIMT f32 FMAs on
+// register tiles, the weights read from L2 once per row.
 
 #include <math_constants.h>
 
@@ -47,53 +67,32 @@ using namespace endodav;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int RM = 8;  // token rows per thread in the products
-constexpr int RN = 4;  // output columns per thread in the products
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(v[0]);
-  const float2 b = __bfloat1622float2(v[1]);
-  out[0] = a.x;
-  out[1] = a.y;
-  out[2] = b.x;
-  out[3] = b.y;
-}
-
-// acc[i][n] = sum_k a[i*lda + k] * w[k*ldw + n] for an RM x RN tile:
-// a (shared memory, rows 16-byte aligned) is read as float4 along k, and
-// each row of 4 weights (global memory, JAX layout [C_in, C_out]) feeds
-// RM*RN FMAs.  kdim is a multiple of 4.
+// LayerNorm (two-pass variance) + pe of the t tokens at xb into ys
+// [mpad][c] (rows t..mpad-1 zeroed), rounded to T; one warp per token.
 template <typename T>
-__device__ __forceinline__ void tile_product(const float* a, int lda, const T* w, int ldw,
-                                             int kdim, float (&acc)[RM][RN]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int n = 0; n < RN; ++n) acc[i][n] = 0.f;
-  for (int k = 0; k < kdim; k += 4) {
-    float av[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) load4(a + i * lda + k, av[i]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float wv[RN];
-      load4(w + (long long)(k + u) * ldw, wv);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int n = 0; n < RN; ++n) acc[i][n] = fmaf(av[i][u], wv[n], acc[i][n]);
+__device__ void layer_norm_pe(const T* xb, const float* gamma, const float* beta,
+                              const float* pe, float* ys, int m_valid, int mpad, int t, int c) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int m = warp; m < mpad; m += WARPS) {
+    float* yr = ys + m * c;
+    if (m >= m_valid) {
+      for (int j = lane; j < c; j += 32) yr[j] = 0.f;
+      continue;
     }
+    const T* xr = xb + (long long)m * c;
+    float sum = 0.f;
+    for (int j = lane; j < c; j += 32) sum += to_f(xr[j]);
+    const float mu = warp_sum(sum) / c;
+    float sq = 0.f;
+    for (int j = lane; j < c; j += 32) {
+      const float d = to_f(xr[j]) - mu;
+      sq += d * d;
+    }
+    const float inv = 1.f / sqrtf(warp_sum(sq) / c + 1e-5f);
+    const float* per = pe + (m % t) * c;
+    for (int j = lane; j < c; j += 32)
+      yr[j] = round_to<T>((to_f(xr[j]) - mu) * inv * gamma[j] + beta[j] + per[j]);
   }
 }
 
@@ -120,27 +119,7 @@ block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int groups = mpad / RM;
 
-  // LayerNorm (two-pass variance, as the reference) + pe, one warp per token
-  for (int m = warp; m < mpad; m += WARPS) {
-    float* yr = ys + m * c;
-    if (m >= m_valid) {
-      for (int j = lane; j < c; j += 32) yr[j] = 0.f;
-      continue;
-    }
-    const T* xr = xb + (long long)m * c;
-    float sum = 0.f;
-    for (int j = lane; j < c; j += 32) sum += to_f(xr[j]);
-    const float mu = warp_sum(sum) / c;
-    float sq = 0.f;
-    for (int j = lane; j < c; j += 32) {
-      const float d = to_f(xr[j]) - mu;
-      sq += d * d;
-    }
-    const float inv = 1.f / sqrtf(warp_sum(sq) / c + 1e-5f);
-    const float* per = pe + (m % t) * c;
-    for (int j = lane; j < c; j += 32)
-      yr[j] = round_to<T>((to_f(xr[j]) - mu) * inv * gamma[j] + beta[j] + per[j]);
-  }
+  layer_norm_pe(xb, gamma, beta, pe, ys, m_valid, mpad, t, c);
   __syncthreads();
 
   // q | k | v of every head: [mpad, c] x [c, 3c]
@@ -208,11 +187,134 @@ block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// One block per row [T, C]; the heads in `groups` groups (see the note at
+// the top).  acc is an f32 scratch [rows, T, C].
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+grouped_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, const float* __restrict__ pe,
+               const T* __restrict__ wq, const T* __restrict__ wk, const T* __restrict__ wv,
+               const T* __restrict__ wo, const T* __restrict__ bo, T* __restrict__ out,
+               float* __restrict__ acc_rows, int t, int c, int heads, int groups, float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int cg = c / groups, heads_g = heads / groups, dh = cg / heads_g;
+  // a multiple of 4 (float4 rows for the out-projection's reads of the
+  // attention output); the per-key reads of the softmax meet 4-way bank
+  // conflicts, under 2% of the block's arithmetic
+  const int ldq = 3 * cg + 4;
+  const int mpad = round_up(t, RM);
+  float* ys = smem;              // [mpad][c]   LN(x)*gamma+beta+pe
+  float* qkv = ys + mpad * c;    // [mpad][ldq] q | k | v of one group; q <- attention output
+  float* pw = qkv + mpad * ldq;  // [WARPS][32] one softmax row per warp
+
+  const long long row_off = (long long)blockIdx.x * t * c;
+  const T* xb = x + row_off;
+  T* ob = out + row_off;
+  float* ab = acc_rows + row_off;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int mgroups = mpad / RM;
+
+  layer_norm_pe(xb, gamma, beta, pe, ys, t, mpad, t, c);
+  __syncthreads();
+
+  for (int g = 0; g < groups; ++g) {
+    // q | k | v of the group's heads: [mpad, c] x [c, 3 cg]
+    const int qcols = 3 * cg / RN;
+    for (int item = threadIdx.x; item < qcols * mgroups; item += THREADS) {
+      const int j0 = (item % qcols) * RN, m0 = (item / qcols) * RM;
+      const int which = j0 / cg;
+      const T* w = (which == 0 ? wq : (which == 1 ? wk : wv)) + g * cg + (j0 - which * cg);
+      float acc[RM][RN];
+      tile_product(ys + m0 * c, c, w, c, c, acc);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int n = 0; n < RN; ++n) qkv[(m0 + i) * ldq + j0 + n] = acc[i][n];
+    }
+    __syncthreads();
+
+    // softmax over the T keys: one warp per (query, head of the group),
+    // one lane per key; the output overwrites the (query, head) q columns
+    for (int item = warp; item < t * heads_g; item += WARPS) {
+      const int m = item / heads_g, h = item % heads_g;
+      float* qr = qkv + m * ldq + h * dh;
+      float s = -CUDART_INF_F;
+      if (lane < t) {
+        const float* kr = qkv + lane * ldq + cg + h * dh;
+        float acc = 0.f;
+        for (int d = 0; d < dh; ++d) acc = fmaf(qr[d], kr[d], acc);
+        s = acc * scale;
+      }
+      const float mx = warp_max(s);
+      const float p = lane < t ? expf(s - mx) : 0.f;
+      pw[warp * 32 + lane] = p / warp_sum(p);
+      __syncwarp();
+      for (int d = lane; d < dh; d += 32) {
+        const float* vc = qkv + 2 * cg + h * dh + d;
+        float acc = 0.f;
+        for (int tk = 0; tk < t; ++tk) acc = fmaf(pw[warp * 32 + tk], vc[tk * ldq], acc);
+        qr[d] = round_to<T>(acc);
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+
+    // out-projection partial: attention [mpad, cg] x Wo[g cg:(g+1) cg, :],
+    // summed over the groups in order in the f32 scratch row
+    const int ocols = c / RN;
+    const bool last = g == groups - 1;
+    for (int item = threadIdx.x; item < ocols * mgroups; item += THREADS) {
+      const int j0 = (item % ocols) * RN, m0 = (item / ocols) * RM;
+      float acc[RM][RN];
+      tile_product(qkv + m0 * ldq, ldq, wo + (long long)g * cg * c + j0, c, cg, acc);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int m = m0 + i;
+        if (m < t) {
+#pragma unroll
+          for (int n = 0; n < RN; ++n) {
+            const long long off = (long long)m * c + j0 + n;
+            const float sum = g == 0 ? acc[i][n] : ab[off] + acc[i][n];
+            if (last)
+              ob[off] = from_f<T>(to_f(xb[off]) + sum + to_f(bo[j0 + n]));
+            else
+              ab[off] = sum;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next group's projections overwrite qkv
+  }
+}
+
 // Dynamic shared memory of one block, in bytes (mirrored by the wrapper,
 // which checks it against the card's 227 KB before launching).
 size_t smem_bytes(int t, int c, int rpb) {
   const int mpad = round_up(rpb * t, RM);
   return ((size_t)mpad * c + (size_t)mpad * (3 * c + 1) + WARPS * 32) * sizeof(float);
+}
+
+size_t grouped_smem_bytes(int t, int c, int groups) {
+  const int mpad = round_up(t, RM);
+  return ((size_t)mpad * c + (size_t)mpad * (3 * (c / groups) + 4) + WARPS * 32) *
+         sizeof(float);
+}
+
+template <typename T>
+int launch_grouped(const void* x, const float* gamma, const float* beta, const float* pe,
+                   const void* wq, const void* wk, const void* wv, const void* wo,
+                   const void* bo, void* out, float* acc, int rows, int t, int c, int heads,
+                   int groups, float scale, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(grouped_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  grouped_kernel<T><<<rows, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), gamma, beta, pe, static_cast<const T*>(wq),
+      static_cast<const T*>(wk), static_cast<const T*>(wv), static_cast<const T*>(wo),
+      static_cast<const T*>(bo), static_cast<T*>(out), acc, t, c, heads, groups, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -253,5 +355,29 @@ extern "C" int endodav_fused_temporal_block(int dtype, const void* x, const void
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16>(x, g, bt, p, wq, wk, wv, wo, bo, out, rows, t, c, heads, rpb,
                                  scale, smem, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The head-grouped kernel; acc is an f32 scratch [rows, t, c].  Returns
+// the cudaError_t of the launch (0 on success).
+extern "C" int endodav_fused_temporal_block_grouped(
+    int dtype, const void* x, const void* gamma, const void* beta, const void* pe,
+    const void* wq, const void* wk, const void* wv, const void* wo, const void* bo, void* out,
+    void* acc, int rows, int t, int c, int heads, int groups, float scale, void* stream) {
+  if (rows < 1 || t < 1 || t > 32 || groups < 1 || heads % groups != 0 || c % heads != 0 ||
+      (c / groups) % RN != 0 || c % RN != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = grouped_smem_bytes(t, c, groups);
+  const float* g = static_cast<const float*>(gamma);
+  const float* bt = static_cast<const float*>(beta);
+  const float* p = static_cast<const float*>(pe);
+  float* a = static_cast<float*>(acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return launch_grouped<float>(x, g, bt, p, wq, wk, wv, wo, bo, out, a, rows, t, c, heads,
+                                 groups, scale, smem, s);
+  if (dtype == kBFloat16)
+    return launch_grouped<__nv_bfloat16>(x, g, bt, p, wq, wk, wv, wo, bo, out, a, rows, t, c,
+                                         heads, groups, scale, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,13 +3,20 @@
 Port of the EndoDAV serving part of `endodav_tpu/eval/engine.py`:
 `build_depth_model` (random init from ``--seed``, reference .pth load,
 ``--merge_lora``), `depth_window_forward` (the whole-model window
-forward) and `evaluate_video_sequences` (window inference, alignment,
-per-frame depth errors, TAE/TAS), with the same protocol constants:
-MIN_DEPTH=1e-3, MAX_DEPTH=150, 95% CI.
+forward with the serving defaults of `endodav_tpu/eval/engine.py:248-295`:
+int8 GEMMs for the merged vitl graph, dedup at >= 512 patch tokens) and
+`evaluate_video_sequences` (window or dedup inference, host or device
+stitch, alignment, per-frame depth errors, TAE/TAS), with the same
+protocol constants: MIN_DEPTH=1e-3, MAX_DEPTH=150, 95% CI.
+
+The JAX engine's ``ENDODAV_SCAN_TRUNK`` and ``ENDODAV_SPLIT_COMPILE`` only
+change how XLA compiles the same function; the port runs eagerly and has
+neither.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 
@@ -17,7 +24,8 @@ import numpy as np
 import torch
 
 from endodav_tpu_torch.eval import metrics as M
-from endodav_tpu_torch.eval.video_inference import infer_video_depth
+from endodav_tpu_torch.eval.video_inference import (DedupWindowForward, dedup_by_default,
+                                                    infer_video_depth)
 from endodav_tpu_torch.geometry.transforms import disp_to_depth
 from endodav_tpu_torch.models.endodav import EndoDAV, endodav_lora_alpha
 from endodav_tpu_torch.models.lora import merge_lora_params
@@ -111,12 +119,23 @@ def build_depth_model(opt, device: torch.device | None = None) -> EndoDAV:
 
 
 def depth_window_forward(model: EndoDAV):
-    """[C, T, h, w, 3] -> [C*T, h', w', 1] sigmoid disparity at scale 0."""
+    """[C, T, h, w, 3] -> [C*T, h', w', 1] sigmoid disparity at scale 0, with
+    the serving defaults: int8 GEMMs for the merged vitl graph (unless
+    ``ENDODAV_INT8`` is set either way), on a shallow copy of ``model`` so
+    that the decision stays with this forward and no env var is written;
+    and ``fwd.dedup``, a `DedupWindowForward` where `dedup_by_default`
+    picks it (else None)."""
+    if model.encoder == "vitl" and model.lora_type == "none" and "ENDODAV_INT8" not in os.environ:
+        model = copy.copy(model)
+        model.int8_serving = True
+        print("[serve] vitl int8 serving GEMMs: on (auto; ENDODAV_INT8=0 opts out)")
 
     def fwd(win: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             return model(win)[("disp", 0)]
 
+    fwd.dedup = DedupWindowForward(model) if dedup_by_default(model.image_shape) else None
+    fwd.model = model
     return fwd
 
 
@@ -148,7 +167,9 @@ def evaluate_video_sequences(opt, sequences, forward=None, device=None):
             t0 = time.perf_counter()
             disp = infer_video_depth(forward, data["colors"],
                                      image_shape=tuple(opt.depth_image_shape),
-                                     chunk_windows=opt.chunk_windows, device=device)
+                                     chunk_windows=opt.chunk_windows, device=device,
+                                     stitch="device" if opt.fast_stitch else "host",
+                                     dedup=getattr(forward, "dedup", None))
             infer_times.append((time.perf_counter() - t0) / len(data["colors"]) * 1000.0)
             _, pred_depths = disp_to_depth(disp, opt.min_depth, opt.max_depth)
 

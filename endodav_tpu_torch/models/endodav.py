@@ -6,6 +6,12 @@ Port of `endodav_tpu/models/endodav.py`: per-frame DINOv2 ViT
 normalize, ViT taps at the encoder's intermediate layers, temporal DPT
 -> {("disp", s): [B*T, h_s, w_s, 1]}.  Parameter names are the reference
 state-dict keys (``pretrained.*``, ``head.*``).
+
+``int8_serving`` (serving only; the engine sets it on the merged vitl
+graph) asks the trunk for its int8 GEMMs; ``ENDODAV_INT8`` overrides it.
+A shallow copy with the flag changed shares every weight with the
+original, the port's counterpart of flax's ``model.clone(int8_serving=
+True)``.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from endodav_tpu_torch.models.vit import VIT_CONFIGS, DinoViT
 from endodav_tpu_torch.ops.resize import resize2d
 
 __all__ = ["EndoDAV", "ENDODAV_CONFIGS", "INFER_LEN", "OVERLAP", "KEYFRAMES", "INTERP_LEN",
-           "IMAGENET_MEAN", "IMAGENET_STD", "endodav_lora_alpha"]
+           "IMAGENET_MEAN", "IMAGENET_STD", "endodav_lora_alpha", "prefix_map_shapes"]
 
 # Sliding-window inference constants.
 INFER_LEN = 32
@@ -42,14 +48,28 @@ def endodav_lora_alpha(lora_type: str, r: int) -> float | None:
     return {"lora": 2.0 * r, "dvlora": float(r)}.get(lora_type)
 
 
+def prefix_map_shapes(model: "EndoDAV"):
+    """Per-frame shapes [H, W, C] of `decode_prefix`'s four maps
+    (layer_1_rn, layer_2_rn, layer_3, layer_4) for ``model``'s config."""
+    ph, pw = model.patch_hw
+    cfg = ENDODAV_CONFIGS[model.encoder]
+    f, oc = cfg["features"], cfg["out_channels"]
+    return ((4 * ph, 4 * pw, f), (2 * ph, 2 * pw, f), (ph, pw, oc[2]),
+            # layer_4: conv k=3 s=2 with (1,1) padding on the patch grid
+            ((ph - 1) // 2 + 1, (pw - 1) // 2 + 1, oc[3]))
+
+
 class EndoDAV(nn.Module):
     def __init__(self, encoder: str = "vits", r: int = 4,
                  image_shape: tuple[int, int] = (224, 280), lora_type: str = "dvlora",
                  residual_block_indexes: Sequence[int] = (), include_cls_token: bool = True,
                  num_frames: int = 32, inv_sigmoid: bool = False, temporal_lora: bool = False,
-                 conv_head: bool = True, out_sigmoid: bool = False):
+                 conv_head: bool = True, out_sigmoid: bool = False,
+                 int8_serving: bool = False):
         super().__init__()
         self.encoder = encoder
+        self.lora_type = lora_type
+        self.int8_serving = int8_serving
         self.image_shape = tuple(image_shape)
         cfg = ENDODAV_CONFIGS[encoder]
         vit_cfg = VIT_CONFIGS[encoder]
@@ -78,10 +98,20 @@ class EndoDAV(nn.Module):
         return (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
 
     def encode(self, video: torch.Tensor):
-        return self.pretrained(self.preprocess(video), ENDODAV_CONFIGS[self.encoder]["intermediate"])
+        take = ENDODAV_CONFIGS[self.encoder]["intermediate"]
+        return self.pretrained(self.preprocess(video), take, self.int8_serving)
 
     def decode(self, taps, frames: int, train: bool = False):
         return self.head(taps, self.patch_hw, frames=frames, train=train)
+
+    def decode_prefix(self, taps):
+        """Per-frame front half of the DPT head (no op mixes frames): the
+        dedup pipeline runs it once per unique source frame."""
+        return self.head.prefix(taps, self.patch_hw)
+
+    def decode_suffix(self, maps, frames: int, train: bool = False):
+        """Window half of the DPT head: temporal modules, fusion pyramid, heads."""
+        return self.head.suffix(maps, frames, train)
 
     def forward(self, video: torch.Tensor, train: bool = False):
         """``train`` selects the motion modules' training route, as the JAX

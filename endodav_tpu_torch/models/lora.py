@@ -13,6 +13,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from endodav_tpu_torch.ops.quant import int8_dense
+
 __all__ = ["LoRADense", "merge_lora_params", "VARIANTS"]
 
 VARIANTS = ("none", "lora", "dvlora")
@@ -43,7 +45,11 @@ class LoRADense(nn.Module):
             self.lora_U = nn.Parameter(torch.empty(r, 1))
             self.lora_V = nn.Parameter(torch.empty(out_features, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, quant_int8: bool = False) -> torch.Tensor:
+        """``quant_int8`` (resolved by the caller) routes the plain layer
+        through the int8 serving GEMM; adapted variants ignore it."""
+        if self.variant == "none" and quant_int8:
+            return int8_dense(x, self.weight, self.bias)
         y = F.linear(x, self.weight, self.bias)
         if self.variant == "none":
             return y

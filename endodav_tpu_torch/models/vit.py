@@ -6,6 +6,13 @@ QKV attention (the flash kernel), LayerScale, LoRA-adapted MLPs with
 exact GELU, the optional ResBottleneck branch on patch tokens, and
 intermediate taps with the final LayerNorm applied per tap.  Parameter
 names follow the reference state-dict keys (``blocks.{i}.attn.qkv`` ...).
+
+Serving routes, as `models/vit.py:85-116,175-197` of the JAX package:
+``quant_int8`` (threaded from `EndoDAV.int8_serving` through the forward,
+``ENDODAV_INT8`` overriding it, `ops/quant.py:resolve_int8`) sends the
+fused qkv projection, the attention out-projection and the merged MLP's
+fc1/fc2 through `int8_dense`; ``ENDODAV_FUSED_MLP`` (default off) sends
+the MLP of the merged graph without int8 through the fused-MLP kernel.
 """
 
 from __future__ import annotations
@@ -16,9 +23,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from endodav_tpu_torch.kernels.fused_mlp import fused_mlp
 from endodav_tpu_torch.models.lora import LoRADense
 from endodav_tpu_torch.ops.attention import fused_qkv_attention
+from endodav_tpu_torch.ops.quant import int8_dense, resolve_int8
 from endodav_tpu_torch.ops.resize import resize2d
+from endodav_tpu_torch.utils.envflags import env_on
 
 __all__ = ["DinoViT", "VIT_CONFIGS", "conv_nhwc"]
 
@@ -41,8 +51,12 @@ class Mlp(nn.Module):
         self.fc1 = LoRADense(dim, hidden, lora_rank, lora_alpha, lora_variant)
         self.fc2 = LoRADense(hidden, dim, lora_rank, lora_alpha, lora_variant)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, quant_int8: bool = False):
+        if env_on("ENDODAV_FUSED_MLP") and self.fc1.variant == "none" and not quant_int8:
+            w1, w2 = (lin.weight.t().contiguous() for lin in (self.fc1, self.fc2))
+            return fused_mlp(x.contiguous(), w1, self.fc1.bias.float(), w2,
+                             self.fc2.bias.float())
+        return self.fc2(F.gelu(self.fc1(x, quant_int8)), quant_int8)
 
 
 class SpatialAttention(nn.Module):
@@ -52,8 +66,12 @@ class SpatialAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x):
-        return self.proj(fused_qkv_attention(x, self.qkv.weight, self.qkv.bias, self.num_heads))
+    def forward(self, x, quant_int8: bool = False):
+        out = fused_qkv_attention(x, self.qkv.weight, self.qkv.bias, self.num_heads,
+                                  quant_int8=quant_int8)
+        if quant_int8:
+            return int8_dense(out, self.proj.weight, self.proj.bias)
+        return self.proj(out)
 
 
 class LayerScale(nn.Module):
@@ -114,9 +132,9 @@ class ViTBlock(nn.Module):
         if use_residual_block:
             self.residual_ = ResBottleneckBlock(dim, dim // 8)
 
-    def forward(self, x, patch_hw: tuple[int, int]):
-        x = x + self.ls1(self.attn(self.norm1(x)))
-        x = x + self.ls2(self.mlp(self.norm2(x)))
+    def forward(self, x, patch_hw: tuple[int, int], quant_int8: bool = False):
+        x = x + self.ls1(self.attn(self.norm1(x), quant_int8))
+        x = x + self.ls2(self.mlp(self.norm2(x), quant_int8))
         if hasattr(self, "residual_"):
             b, n, c = x.shape
             patches = x[:, self.ofs:].reshape(b, *patch_hw, c)
@@ -137,7 +155,9 @@ class PatchEmbed(nn.Module):
 
 class DinoViT(nn.Module):
     """DINOv2 ViT trunk; ``forward(images, take_indices)`` returns a list
-    of (patch_tokens [B, N, C], cls [B, C]) per tap, post final LayerNorm."""
+    of (patch_tokens [B, N, C], cls [B, C]) per tap, post final LayerNorm;
+    ``quant_int8`` asks for the int8 serving GEMMs (resolved here, once a
+    forward, against ``ENDODAV_INT8``)."""
 
     def __init__(self, embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  patch_size: int = 14, pos_grid: int = 37,
@@ -176,7 +196,8 @@ class DinoViT(nn.Module):
             return torch.cat([pos_embed[:, :1], flat], dim=1)
         return flat
 
-    def forward(self, images: torch.Tensor, take_indices: Sequence[int]):
+    def forward(self, images: torch.Tensor, take_indices: Sequence[int],
+                quant_int8: bool = False):
         b, h, w, _ = images.shape
         ph, pw = h // self.patch_size, w // self.patch_size
         x = self.patch_embed(images)
@@ -184,9 +205,10 @@ class DinoViT(nn.Module):
             x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, self.embed_dim), x], dim=1)
         x = x + self.interpolated_pos_embed(ph, pw).to(x.dtype)
         take = set(int(i) for i in take_indices)
+        quant_int8 = resolve_int8(quant_int8)
         results = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x, (ph, pw))
+            x = blk(x, (ph, pw), quant_int8)
             if i in take:
                 out = self.norm(x)
                 # without a cls token the first patch stands in for it

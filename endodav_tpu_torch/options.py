@@ -102,6 +102,8 @@ class EndoDAVOptions:
         p.add_argument("--depth_image_shape", nargs=2, type=int, default=[224, 280],
                        help="model-internal (H, W); the 518px config is "
                             "'--depth_image_shape 518 518' with keep-aspect sizing")
+        p.add_argument("--fast_stitch", action="store_true",
+                       help="stitch the windows on the device instead of the host")
         p.add_argument("--merge_lora", action="store_true",
                        help="fold LoRA deltas into the base weights for serving (exact)")
 

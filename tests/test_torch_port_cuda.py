@@ -198,3 +198,93 @@ def test_fused_temporal_block_gradient_matches_plain():
     torch.cuda.synchronize()
     for a, r in zip(got_in, ref_in):
         assert (a.grad - r.grad).abs().max().item() <= 1e-4 * max(1.0, r.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,t,c", [(5, 32, 1024), (3, 7, 1024), (9, 5, 512)])
+def test_grouped_temporal_block_matches_plain(dtype, rows, t, c):
+    """C >= 512 launches the head-grouped kernel (and not the block kernel)."""
+    from endodav_tpu_torch.kernels.fused_temporal_block import (grouped_reference_block,
+                                                                 launch_grouped)
+
+    dev = _card()
+    rng = np.random.default_rng(rows * c + t)
+    f = lambda *s, sd=0.2: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sd).astype(np.float32)).to(dev)
+    x = f(rows, t, c, sd=0.5)
+    gamma, beta, pe = 1.0 + f(c), f(c), f(t, c)
+    ws = [f(c, c, sd=c ** -0.5) for _ in range(4)]
+    args = [a.to(dtype) for a in (x, *ws, f(c))]
+    want = grouped_reference_block(args[0].float(), gamma, beta, pe,
+                                   *(a.float() for a in args[1:5]), args[5].float(), 8)
+    before = (launch_grouped.launches, fused_temporal_block.launches)
+    got = fused_temporal_block(args[0], gamma, beta, pe, *args[1:5], args[5], 8)
+    again = fused_temporal_block(args[0], gamma, beta, pe, *args[1:5], args[5], 8)
+    torch.cuda.synchronize()
+    assert (launch_grouped.launches, fused_temporal_block.launches) == (before[0] + 2, before[1])
+    assert got.dtype == dtype and torch.equal(got, again)  # no atomics: the same bits
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_grouped_temporal_block_gradient_matches_plain():
+    from endodav_tpu_torch.kernels.fused_temporal_block import grouped_reference_block
+
+    dev = _card()
+    rng = np.random.default_rng(14)
+    rows, t, c = 3, 8, 512
+    f = lambda *s, sd=0.2: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sd).astype(np.float32)).to(dev)
+    args = [f(rows, t, c, sd=0.5), 1.0 + f(c), f(c), f(t, c), *(f(c, c, sd=c ** -0.5)
+                                                                for _ in range(4)), f(c)]
+    g = f(rows, t, c, sd=1.0)
+    got_in = [a.clone().requires_grad_() for a in args]
+    fused_temporal_block(*got_in, 8).backward(g)
+    ref_in = [a.clone().requires_grad_() for a in args]
+    grouped_reference_block(*ref_in, 8).backward(g)
+    torch.cuda.synchronize()
+    for a, r in zip(got_in, ref_in):
+        assert (a.grad - r.grad).abs().max().item() <= 1e-4 * max(1.0, r.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c,h", [(37, 384, 1536), (600, 1024, 4096), (8, 64, 256)])
+def test_fused_mlp_matches_plain(dtype, rows, c, h):
+    from endodav_tpu_torch.kernels.fused_mlp import fused_mlp, mlp_reference
+
+    dev = _card()
+    rng = np.random.default_rng(rows + c)
+    f = lambda *s, sd=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sd).astype(np.float32)).to(dev)
+    x, w1, b1, w2, b2 = f(rows, c), f(c, h, sd=c ** -0.5), f(h, sd=0.1), f(h, c, sd=h ** -0.5), \
+        f(c, sd=0.1)
+    xd, w1d, w2d = x.to(dtype), w1.to(dtype), w2.to(dtype)
+    want = mlp_reference(xd, w1d, b1, w2d, b2).float()
+    before = fused_mlp.launches
+    got = fused_mlp(xd, w1d, b1, w2d, b2)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1 and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= TOL[dtype] * max(1.0, want.abs().max())
+
+
+@pytest.mark.cuda
+def test_int8_dense_product_is_exact():
+    """torch._int_mm's int32 product equals the plain int64 one, and
+    `int8_dense` refuses shapes it cannot take."""
+    from endodav_tpu_torch.ops.quant import int8_dense, int_matmul, quantize_rows, quantize_weight
+
+    dev = _card()
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((3, 50, 256)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((96, 256)) * 0.1).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(96).astype(np.float32)).to(dev)
+    x8, xs = quantize_rows(x)
+    w8, ws = quantize_weight(w)
+    acc = int_matmul(x8.reshape(-1, 256), w8)
+    assert torch.equal(acc.cpu().long(), int_matmul(x8.reshape(-1, 256).cpu(), w8.cpu()))
+    want = acc.float().reshape(3, 50, 96) * xs * ws + b
+    torch.testing.assert_close(int8_dense(x, w, b), want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="M > 16"):
+        int8_dense(x[:1, :10], w, b)

@@ -106,16 +106,27 @@ def test_cuda_call_without_toolkit_raises(monkeypatch, tmp_path):
     assert (qkv_attention.launches, fused_temporal_block.launches) == before
 
 
-def test_temporal_block_wide_channels_raise():
-    """vitl's C=1024 exceeds a Hopper block's shared memory: the wrapper
-    raises with the reason (checked before anything is built)."""
+def test_temporal_block_wide_channels_reach_grouped_launcher(monkeypatch, tmp_path):
+    """vitl's C=1024 goes to the head-grouped kernel's launcher (the
+    ungrouped layout exceeds a Hopper block's shared memory); without nvcc
+    it raises there and counts no launch."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; test_torch_port_cuda.py covers it")
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from endodav_tpu_torch.kernels import fused_temporal_block as ftb
+
     assert rows_per_block(32, 64) == 2 and rows_per_block(32, 384) == 1
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "_lib", None)
+    before = (fused_temporal_block.launches, ftb.launch_grouped.launches)
     with FakeTensorMode():
         c, t = 1024, 32
         vec = torch.empty(c, device="cuda")
         w = torch.empty(c, c, device="cuda")
-        with pytest.raises(ValueError, match="shared memory"):
+        with pytest.raises(RuntimeError, match="nvcc") as err:
             fused_temporal_block(torch.empty(4, t, c, device="cuda"), vec, vec,
                                  torch.empty(t, c, device="cuda"), w, w, w, w, vec, 8)
+    assert any(entry.name == "launch_grouped" for entry in err.traceback)
+    assert (fused_temporal_block.launches, ftb.launch_grouped.launches) == before
