@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and training step on one CUDA card.
+"""Drive the PyTorch port's serving, streaming and training paths on one CUDA card.
 
     python3 chip_smoke.py [--profile-step TRACE_DIR] [--profile-serving TRACE_DIR]
 
@@ -10,33 +10,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shapes of the serving path and of the training step: flash attention
      (f32, bf16, and its gradient), the fused temporal block and its
      head-grouped kernel (vitl's C=1024) in f32 and bf16, the fused MLP at
-     vits and vitl widths, the int8 serving GEMM (`int8_dense`); the
+     vits and vitl widths, the fused RCU at the vits head's shapes, the
+     temporal attention at the training step's and a 518x644 window's
+     shapes (and its gradient), the int8 serving GEMM (`int8_dense`); the
      grid-sample forward and both backward kernels at the four warp calls
-     of the training step, and the forward splat; with the kernel's, the
-     plain version's and one PyTorch call's times;
+     of the training step, their channel-plane twins at the C > 1 calls
+     (also against the interleaved kernels), and the forward splat; with
+     the kernel's, the plain version's and one PyTorch call's times;
   4. the full-width vits EndoDAV (random weights from a seed) on one
-     8-frame 224x280 clip, and the full-width merged vitl on one 4-frame
-     112x140 clip, on the card with the kernels (int8 off) against the CPU
-     with the plain versions;
+     8-frame 224x280 clip, as built and with ENDODAV_FUSED_RCU=1, a vits
+     RoPE EndoDAV on the same clip, and the full-width merged vitl on one
+     4-frame 112x140 clip, on the card with the kernels (int8 off) against
+     the CPU with the plain versions;
   5. the serving path as the CLI runs it (engine.build_depth_model ->
      depth_window_forward -> evaluate_video_sequences) over synthetic
      SCARED-like 64-frame sequences: vitl 518x644 merged (dedup in taps
      mode, int8 GEMMs, device stitch), the vits 518x644 headline (dedup in
-     prefix mode) without and with ENDODAV_FUSED_MLP=1, and the 224x280
-     CLI default (window path); finite metrics and the launches of every
-     serving kernel per encode batch and per window chunk checked;
-  6. one small training step (64x96 frames, T=4, ViT input 56x70) on the
+     prefix mode) as built, with ENDODAV_FUSED_MLP=1 and with
+     ENDODAV_FUSED_RCU=1, and the 224x280 CLI default (window path); finite
+     metrics and the launches of every serving kernel per encode batch and
+     per window chunk checked;
+  6. live streaming (`eval/streaming.py:DepthStreamer`) with
+     ENDODAV_FUSED_RCU=1 over one 64-frame sequence pushed frame by frame:
+     vits 518x644 merged on dedup (prefix mode) and the 224x280 default on
+     the window path; the output against the offline path on the card,
+     the buffer bound, the launches per push and per fired window, the
+     median ms per push and per fired window;
+  7. one small training step (64x96 frames, T=4, ViT input 56x70) on the
      card with the kernels against the same step on the CPU with the
-     plain versions: both phase losses, the gradients and the updated
-     values of a LoRA B and a pose-decoder weight;
-  7. the training step at full width, as `scripts/train_video.sh`
+     plain versions, with and without ENDODAV_WARP_CP=1: both phase
+     losses, the gradients and the updated values of a LoRA B and a
+     pose-decoder weight;
+  8. the training step at full width, as `scripts/train_video.sh`
      configures it (vits, 256x320, batch 1, T=16, dvlora with
      --warm_up_step 2): `Trainer` built through the option parser on a
      synthetic SCARED tree written from the seed, 4 steps of
-     `train_one_batch` with finite losses, the expected parameter changes
-     and the expected launches of every kernel per step; ms/step and the
-     peak memory;
-  8. a JSON line per kernel and, last, the device line.
+     `train_one_batch` and 2 more with ENDODAV_WARP_CP=1, with finite
+     losses, the expected parameter changes and the expected launches of
+     every kernel per step; ms/step and the peak memory;
+  9. a JSON line per kernel and, last, the device line.
 
 ``--profile-step TRACE_DIR`` adds a `torch.profiler` run of one more
 full-width step, ``--profile-serving TRACE_DIR`` one of vitl serving over
@@ -46,6 +58,7 @@ TRACE_DIR.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -75,6 +88,16 @@ TEMPORAL_SHAPES = [(192, 1702), (384, 437), (64, 6808), (1024, 1702), (1024, 437
                    (256, 6808)]
 # fused MLP (C, H, rows): a dedup encode batch of 32 518x644 frames
 MLP_SHAPES = [(384, 1536, 32 * 1703), (1024, 4096, 32 * 1703)]
+# fused RCU (B, H, W) at C=64: the vits head's RCU inputs of one 518x644
+# window (refinenet4 19x23, refinenet3 37x46, refinenet2 74x92, refinenet1
+# 148x184) and of a 224x280 window (refinenet1 64x80)
+RCU_SHAPES = [(32, 19, 23), (32, 37, 46), (32, 74, 92), (32, 148, 184), (32, 64, 80)]
+# temporal attention (rows, T, Dh) over 8 heads: the training step's motion
+# modules (256x320 frames, ViT input 224x280, T=16: C=192, 384, 64 at
+# 16x20, 8x10 and 16x20, 32x40 pixels) and a 518x644 serving window's
+# (T=32, 37x46, 19x23, 74x92 pixels)
+TATTN_SHAPES = [(320, 16, 24), (80, 16, 48), (320, 16, 8), (1280, 16, 8), (1702, 32, 24),
+                (437, 32, 48), (6808, 32, 8)]
 # the serving configurations of the main path: the 518x644 headline, and
 # vitl at it as the CLI serves it (dedup in taps mode, int8 by default)
 HEADLINE = ["--depth_image_shape", "518", "644", "--merge_lora", "--disable_residual_block"]
@@ -115,13 +138,39 @@ TRAIN_FLAGS = ["--model_type", "endodav", "--encoder", "vits", "--batch_size", "
 #   per phase = 2 (its mask is a constant to the loss: no backward);
 # flash attention: the 12 ViT blocks of the one depth forward = 12 (the
 #   backward is a plain recompute); temporal block: 0 (the training route
-#   of the motion modules, models/motion.py)
+#   of the motion modules, models/motion.py); temporal attention: the 4
+#   motion modules x 2 attention sub-blocks of that forward = 8;
+# channel planes: none without ENDODAV_WARP_CP
 STEP_LAUNCHES = {"grid_sample_fwd": 4, "grid_sample_bwd_coord": 2, "grid_sample_bwd_fused": 1,
-                 "splat": 2, "flash_attention": 12, "fused_temporal_block": 0}
+                 "grid_sample_fwd_cp": 0, "grid_sample_bwd_coord_cp": 0,
+                 "grid_sample_bwd_fused_cp": 0, "splat": 2, "flash_attention": 12,
+                 "fused_temporal_block": 0, "temporal_attention": 8}
+# with ENDODAV_WARP_CP=1 the C=3 warps take planes: the forward of both
+# registration warps and of colour synthesis (3), the coordinate backward
+# of phase 0's registration and of colour synthesis (2); the depth warps
+# are C=1 and stay interleaved (forward 1, fused backward 1)
+STEP_LAUNCHES_CP = dict(STEP_LAUNCHES, grid_sample_fwd=1, grid_sample_fwd_cp=3,
+                        grid_sample_bwd_coord=0, grid_sample_bwd_coord_cp=2)
+CP_STEPS = 2  # full-width steps with ENDODAV_WARP_CP=1 after the default ones
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+@contextlib.contextmanager
+def _env(env):
+    """Set the environment variables ``env`` for the block, then restore."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def require(cond: bool, msg: str) -> None:
@@ -388,6 +437,18 @@ def _coords(g, n, h, w, device, align_corners=True):
     return fx.contiguous(), fy.contiguous()
 
 
+def _library_inputs(img, fx, fy, tile, align, zeros):
+    """The library yardstick's inputs for a warp call: NCHW copies of the
+    images expanded over img_tile, the normalised grid and the padding."""
+    h, w = img.shape[1:3]
+    inp = img.permute(0, 3, 1, 2).repeat_interleave(tile, 0).contiguous()
+    if align:
+        grid = torch.stack([fx / (w - 1) * 2 - 1, fy / (h - 1) * 2 - 1], -1)
+    else:
+        grid = torch.stack([(2 * fx + 1) / w - 1, (2 * fy + 1) / h - 1], -1)
+    return inp, grid, "zeros" if zeros else "border"
+
+
 # the warp calls of the training step at 256x320, batch 1, T=16, four
 # scales: (name, images, channels, img_tile, zeros mode, align_corners,
 # image gradient); the registration warp repeats colour synthesis's call
@@ -442,12 +503,7 @@ def check_warps(device, hw=TRAIN_HW):
         # times: the kernels alone, the plain forward, the plain backward
         # from a kept graph, and the library calls on NCHW copies with a
         # normalised grid made here (its images expanded over img_tile)
-        inp = img.permute(0, 3, 1, 2).repeat_interleave(tile, 0).contiguous()
-        if align:
-            grid = torch.stack([fx / (w - 1) * 2 - 1, fy / (h - 1) * 2 - 1], -1)
-        else:
-            grid = torch.stack([(2 * fx + 1) / w - 1, (2 * fy + 1) / h - 1], -1)
-        pad = "zeros" if zeros else "border"
+        inp, grid, pad = _library_inputs(img, fx, fy, tile, align, zeros)
         i, x, y = (t.clone().requires_grad_() for t in (img, fx, fy))
         plain_out = W.grid_sample_reference(i if img_grad else i.detach(), x, y, zeros, tile)
         wrt = [x, y] + ([i] if img_grad else [])
@@ -566,31 +622,260 @@ def check_splat(device, n=128, hw=TRAIN_HW):
     return row
 
 
+def check_fused_rcu(device, shapes=RCU_SHAPES, c=64, timing=True):
+    """The fused RCU against its plain version at the vits head's RCU
+    shapes, f32 and bf16, to TOL of max(1, the largest entry); the library
+    yardstick is cuDNN's channels-last composition (two F.conv2d, relu,
+    add) on the same tensors."""
+    import torch.nn.functional as F
+
+    from endodav_tpu_torch.kernels.fused_rcu import fused_rcu, rcu_reference
+
+    rows = []
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    convs = [torch.nn.Conv2d(c, c, 3, padding=1).to(device) for _ in range(2)]
+    with torch.no_grad():
+        for conv in convs:
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g, device=device)
+                              * (9 * c) ** -0.5)
+            conv.bias.copy_(torch.randn(c, generator=g, device=device) * 0.1)
+    for b, h, w in shapes:
+        x = torch.randn((b, h, w, c), generator=g, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            ws = [p.to(dtype) for conv in convs for p in (conv.weight, conv.bias)]
+            wf = [p.float() for p in ws]
+            with torch.no_grad():
+                want = rcu_reference(xd.float(), wf[0], convs[0].bias, wf[2], convs[1].bias)
+                got = fused_rcu(xd, *convs).float()
+            torch.cuda.synchronize(device)
+            err = (got - want).abs().max().item()
+            tol = TOL[dtype] * max(1.0, want.abs().max().item())
+            row = dict(shape=f"[{b},{h},{w},{c}]", dtype=str(dtype)[6:], err=err)
+            if timing:
+                # cuDNN on channels-last NCHW views, weights channels-last too
+                xl = xd.permute(0, 3, 1, 2)
+                wl = [ws[i].contiguous(memory_format=torch.channels_last) for i in (0, 2)]
+
+                def library():
+                    y = F.conv2d(F.relu(xl), wl[0], ws[1], padding=1)
+                    return F.conv2d(F.relu(y), wl[1], ws[3], padding=1) + xl
+
+                with torch.no_grad():
+                    t_ = time_calls({"plain": lambda: rcu_reference(xd, *ws),
+                                     "kernel": lambda: fused_rcu(xd, *convs),
+                                     "library": library})
+                row["ms"], row["plain_ms"], row["library_ms"] = (t_["kernel"], t_["plain"],
+                                                                 t_["library"])
+                # x read and the output written once, the two tap sets and
+                # biases once; two 3x3 convolutions a pixel
+                row["bound_ms"], row["bound_by"] = bound(
+                    xd.element_size() * (2 * b * h * w * c + 2 * 9 * c * c) + 2 * 4 * c,
+                    2.0 * b * h * w * 2 * 9 * c * c, dtype)
+            print(f"[fused_rcu] {row}")
+            require(err <= tol, f"fused_rcu {row}: max |err| above {tol}")
+            rows.append(row)
+    return rows
+
+
+def check_temporal_attention(device, shapes=TATTN_SHAPES, heads=8, timing=True):
+    """Temporal attention against its plain version at the training step's
+    (T=16) and the 518x644 serving shapes (T=32), f32 and bf16, and the
+    gradient of the kernel path against the plain version's autograd at a
+    training shape; the library yardstick is scaled_dot_product_attention
+    on [B*, H, T, Dh] copies made outside the timing."""
+    import torch.nn.functional as F
+
+    from endodav_tpu_torch.kernels.temporal_attention import (temporal_attention,
+                                                              temporal_attention_reference)
+
+    rows = []
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    for nrows, t, dh in shapes:
+        qkv = [torch.randn((nrows, t, heads, dh), generator=g, device=device) for _ in range(3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (a.to(dtype) for a in qkv)
+            want = temporal_attention_reference(q.float(), k.float(), v.float(), dh ** -0.5)
+            got = temporal_attention(q, k, v).float()
+            torch.cuda.synchronize(device)
+            err = (got - want).abs().max().item()
+            row = dict(shape=f"rows={nrows} T={t} H={heads} Dh={dh}", dtype=str(dtype)[6:],
+                       err=err)
+            if timing:
+                qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+                t_ = time_calls({
+                    "plain": lambda: temporal_attention_reference(q, k, v, dh ** -0.5),
+                    "kernel": lambda: temporal_attention(q, k, v),
+                    "library": lambda: F.scaled_dot_product_attention(qh, kh, vh)})
+                row["ms"], row["plain_ms"], row["library_ms"] = (t_["kernel"], t_["plain"],
+                                                                 t_["library"])
+                # q, k, v read and the output written once; QK^T and PV
+                row["bound_ms"], row["bound_by"] = bound(
+                    q.element_size() * 4 * nrows * t * heads * dh,
+                    4.0 * nrows * heads * t * t * dh, dtype)
+            print(f"[temporal_attention] {row}")
+            require(err <= TOL[dtype], f"temporal_attention {row}: max |err| above {TOL[dtype]}")
+            rows.append(row)
+    nrows, t, dh = shapes[0]
+    qkv = [torch.randn((nrows, t, heads, dh), generator=g, device=device) for _ in range(3)]
+    cot = torch.randn((nrows, t, heads, dh), generator=g, device=device)
+    got_in = [a.clone().requires_grad_() for a in qkv]
+    out = temporal_attention(*got_in)
+    require(out.grad_fn is not None, "temporal_attention returned a result without grad_fn")
+    got = torch.autograd.grad(out, got_in, cot)
+    ref_in = [a.clone().requires_grad_() for a in qkv]
+    want = torch.autograd.grad(temporal_attention_reference(*ref_in, dh ** -0.5), ref_in, cot)
+    grad_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    scale = max(b.abs().max().item() for b in want)
+    print(f"[temporal_attention grad] rows={nrows} T={t} Dh={dh}: max |err| {grad_err:.3e} "
+          f"(largest entry {scale:.3e})")
+    require(grad_err <= TOL[torch.float32] * max(1.0, scale),
+            f"temporal_attention gradient: max |err| {grad_err}")
+    return rows, grad_err
+
+
+# the warp calls of the training step with C > 1 (CP_CALLS: name in
+# WARP_CALLS): colour synthesis (forward and coordinate backward on the
+# step under ENDODAV_WARP_CP=1) and JAX's flow-consistency call (the fused
+# backward at C=2; the step's own fused backward is C=1)
+CP_CALLS = ("colour synthesis", "flow_consistency")
+
+
+def check_warps_cp(device, hw=TRAIN_HW):
+    """The channel-plane warp kernels (ENDODAV_WARP_CP=1) against their
+    plain version (`grid_sample_planes_reference`) and against the
+    interleaved kernels on the same inputs, at the training step's C > 1
+    warp calls; the times of the plane kernels, the interleaved kernels,
+    the plain version and the library calls."""
+    import torch.nn.functional as F
+
+    from endodav_tpu_torch.kernels import warp_matmul as W
+
+    h, w = hw
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    rows = []
+    for name, b_img, c, tile, zeros, align, img_grad in WARP_CALLS:
+        if name not in CP_CALLS:
+            continue
+        bg = b_img * tile
+        img = torch.rand((b_img, h, w, c), generator=g, device=device)
+        fx, fy = _coords(g, bg, h, w, device)
+        cot = torch.randn((bg, h, w, c), generator=g, device=device)
+
+        def grads(fn, cp):
+            with _env({"ENDODAV_WARP_CP": "1" if cp else "0"}):
+                i, x, y = (t.clone().requires_grad_() for t in (img, fx, fy))
+                out = fn(i if img_grad else i.detach(), x, y)
+                wrt = [x, y] + ([i] if img_grad else [])
+                return (out.detach(), *torch.autograd.grad(out, wrt, cot))
+
+        got = grads(lambda i, x, y: W.grid_sample_mm(i, x, y, zeros, img_grad, tile), True)
+        plain = grads(lambda i, x, y: W.grid_sample_planes_reference(
+            W.to_planes(i), x, y, zeros, tile), True)
+        inter = grads(lambda i, x, y: W.grid_sample_mm(i, x, y, zeros, img_grad, tile), False)
+        torch.cuda.synchronize(device)
+        row = dict(call=name, shape=f"img [{b_img},{c},{h},{w}] coords [{bg},{h},{w}]",
+                   img_tile=tile, zeros=zeros)
+        for label, want in (("plain", plain), ("interleaved", inter)):
+            for k, what in enumerate(("out", "dfx", "dfy")):
+                e = (got[k] - want[k]).abs().max().item()
+                row[f"err_{what}_vs_{label}"] = e
+                tol = WARP_TOL * max(1.0, want[k].abs().max().item())
+                require(e <= tol, f"{name} planes: {what} vs {label} max |err| {e} above {tol}")
+            if img_grad:
+                rel = _rel_err(got[3], want[3])
+                row[f"rel_dimg_vs_{label}"] = rel
+                require(rel <= ATOMIC_RTOL, f"{name} planes: d_img vs {label} relative {rel}")
+
+        planes = W.to_planes(img)
+        inp, grid, pad = _library_inputs(img, fx, fy, tile, align, zeros)
+        fwd = time_calls({
+            "plain": lambda: W.grid_sample_planes_reference(planes, fx, fy, zeros, tile),
+            "kernel": lambda: W.grid_sample_fwd_cp_cuda(planes, fx, fy, zeros, tile),
+            "interleaved": lambda: W.grid_sample_fwd_cuda(img, fx, fy, zeros, tile),
+            "library": lambda: F.grid_sample(inp, grid, "bilinear", pad, align)})
+        i, x, y = (t.clone().requires_grad_() for t in (planes, fx, fy))
+        plain_out = W.grid_sample_planes_reference(i if img_grad else i.detach(), x, y, zeros,
+                                                   tile)
+        wrt = [x, y] + ([i] if img_grad else [])
+        cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
+        if img_grad:
+            kernel, inter_k = (
+                (lambda: W.grid_sample_bwd_fused_cp_cuda(planes, fx, fy, cot, zeros)),
+                (lambda: W.grid_sample_bwd_fused_cuda(img, fx, fy, cot, zeros)))
+        else:
+            kernel, inter_k = (
+                (lambda: W.grid_sample_bwd_coord_cp_cuda(planes, fx, fy, cot, zeros, tile)),
+                (lambda: W.grid_sample_bwd_coord_cuda(img, fx, fy, cot, zeros, tile)))
+        bwd = time_calls({
+            "plain": lambda: torch.autograd.grad(plain_out, wrt, cot, retain_graph=True),
+            "kernel": kernel, "interleaved": inter_k,
+            "library": lambda: torch.ops.aten.grid_sampler_2d_backward(
+                cot_nchw, inp, grid, 0, 0 if zeros else 1, align, [img_grad, True])})
+        p, img_b, c4 = bg * h * w, b_img * h * w * c * 4, c * 4
+        row["fwd"] = dict(ms=fwd["kernel"], interleaved_ms=fwd["interleaved"],
+                          plain_ms=fwd["plain"], library_ms=fwd["library"])
+        row["fwd"]["bound_ms"], row["fwd"]["bound_by"] = bound(img_b + p * (8 + c4),
+                                                               p * (16 + 8 * c))
+        row["bwd"] = dict(ms=bwd["kernel"], interleaved_ms=bwd["interleaved"],
+                          plain_ms=bwd["plain"], library_ms=bwd["library"])
+        row["bwd"]["bound_ms"], row["bwd"]["bound_by"] = bound(
+            img_b * (2 if img_grad else 1) + p * (16 + c4), p * (16 + 16 * c))
+        print(f"[warp planes] {row}")
+        rows.append(row)
+        del plain_out, wrt
+    return rows
+
+
 def eval_options(args):
     from endodav_tpu_torch.options import EndoDAVOptions
 
     return EndoDAVOptions().parse(["--seed", str(SEED), *args])
 
 
-def check_whole_model(device, args=(), image_shape=(224, 280), frames=8):
+def check_whole_model(device, args=(), image_shape=(224, 280), frames=8, env=None,
+                      pos_embedding_type="ape", counter=None, expect_launches=None):
     """A full-width EndoDAV on the card (kernels; int8 off, as
-    build_depth_model leaves it) vs the CPU (plain versions)."""
+    build_depth_model leaves it) vs the CPU (plain versions), with ``env``
+    set for both forwards; ``pos_embedding_type="rope"`` builds the model
+    as the engine does but with RoPE motion modules.  ``counter``, a
+    kernel wrapper, must launch ``expect_launches`` times in the card's
+    forward."""
     from endodav_tpu_torch.eval import engine
 
     opt = eval_options(["--no_cuda", "--depth_image_shape", *map(str, image_shape), *args])
-    cpu_model = engine.build_depth_model(opt, torch.device("cpu"))
-    gpu_model = copy.deepcopy(cpu_model).to(device)
-    rng = np.random.default_rng(SEED)
-    video = torch.from_numpy(rng.uniform(0.0, 1.0, (1, frames, 256, 320, 3)).astype(np.float32))
-    with torch.inference_mode():
-        want = cpu_model(video)
-        got = gpu_model(video.to(device))
+    with _env(env or {}):
+        if pos_embedding_type == "ape":
+            cpu_model = engine.build_depth_model(opt, torch.device("cpu"))
+        else:
+            from endodav_tpu_torch.models.endodav import EndoDAV
+
+            cpu_model = engine.init_random_(EndoDAV(
+                encoder=opt.encoder, r=opt.lora_rank, lora_type=opt.lora_type,
+                image_shape=image_shape,
+                residual_block_indexes=[] if opt.disable_residual_block
+                else opt.residual_block_indexes,
+                pos_embedding_type=pos_embedding_type), opt.seed).eval()
+        gpu_model = copy.deepcopy(cpu_model).to(device)
+        rng = np.random.default_rng(SEED)
+        video = torch.from_numpy(rng.uniform(0.0, 1.0, (1, frames, 256, 320, 3))
+                                 .astype(np.float32))
+        with torch.inference_mode():
+            want = cpu_model(video)
+            if counter is not None:
+                counter.launches = 0
+            got = gpu_model(video.to(device))
+            launches = counter.launches if counter is not None else None
     errs = {s: (got[("disp", s)].cpu() - want[("disp", s)]).abs().max().item() for s in range(4)}
-    print(f"[whole model] {opt.encoder} {' '.join(args)} {image_shape} T={frames}: "
-          f"max |Δdisp| per scale {errs}")
+    label = " ".join([*(f"{k}={v}" for k, v in (env or {}).items()), opt.encoder, *args,
+                      pos_embedding_type])
+    print(f"[whole model] {label} {image_shape} T={frames}: max |Δdisp| per scale {errs}"
+          + (f", {counter.__name__} launches {launches}" if counter is not None else ""))
     for s, e in errs.items():
         require(np.isfinite(e) and e <= MODEL_TOL,
-                f"whole model {opt.encoder} scale {s}: max |Δdisp| {e} above {MODEL_TOL}")
+                f"whole model {label} scale {s}: max |Δdisp| {e} above {MODEL_TOL}")
+    require(launches == expect_launches,
+            f"whole model {label}: {launches} launches, expected {expect_launches}")
     del cpu_model, gpu_model
     return max(errs.values())
 
@@ -620,9 +905,27 @@ def _serving_counters():
     from endodav_tpu_torch.kernels import fused_temporal_block as ftb
     from endodav_tpu_torch.kernels.flash_attention import qkv_attention
     from endodav_tpu_torch.kernels.fused_mlp import fused_mlp
+    from endodav_tpu_torch.kernels.fused_rcu import fused_rcu
+    from endodav_tpu_torch.kernels.temporal_attention import temporal_attention
 
     return {"flash_attention": qkv_attention, "fused_temporal_block": ftb.fused_temporal_block,
-            "fused_temporal_block_grouped": ftb.launch_grouped, "fused_mlp": fused_mlp}
+            "fused_temporal_block_grouped": ftb.launch_grouped, "fused_mlp": fused_mlp,
+            "fused_rcu": fused_rcu, "temporal_attention": temporal_attention}
+
+
+def rcu_routed(model) -> bool:
+    """The RCUs of ``model``'s head take the fused kernel at serving
+    (models/dpt.py): ENDODAV_FUSED_RCU and features <= 128."""
+    from endodav_tpu_torch.kernels.fused_rcu import MAX_CHANNELS
+    from endodav_tpu_torch.models.endodav import ENDODAV_CONFIGS
+    from endodav_tpu_torch.utils.envflags import env_on
+
+    features = ENDODAV_CONFIGS[model.encoder]["features"]
+    return env_on("ENDODAV_FUSED_RCU") and features <= MAX_CHANNELS
+
+
+# the RCUs of one head suffix: refinenet1-3 two each, refinenet4 one
+RCU_PER_SUFFIX = 7
 
 
 def expected_serving_launches(opt, forward, sequences):
@@ -630,7 +933,9 @@ def expected_serving_launches(opt, forward, sequences):
     per encode batch (dedup) or per window chunk (window path) one flash
     attention a ViT block, and one fused MLP a block where it routes; per
     window chunk two temporal blocks a motion module, on the grouped kernel
-    where the module has C >= 512."""
+    where the module has C >= 512, and one head suffix (whatever the
+    number of windows in it): seven fused RCUs where they route.  The
+    serving models are APE: no temporal attention."""
     from endodav_tpu_torch.eval.video_inference import window_indices
     from endodav_tpu_torch.kernels.fused_temporal_block import GROUPED_MIN_C
     from endodav_tpu_torch.models.endodav import ENDODAV_CONFIGS
@@ -650,7 +955,9 @@ def expected_serving_launches(opt, forward, sequences):
            and not resolve_int8(forward.model.int8_serving))
     return ({"flash_attention": depth * batches, "fused_temporal_block": (8 - grouped) * chunks,
              "fused_temporal_block_grouped": grouped * chunks,
-             "fused_mlp": depth * batches if mlp else 0},
+             "fused_mlp": depth * batches if mlp else 0,
+             "fused_rcu": RCU_PER_SUFFIX * chunks if rcu_routed(forward.model) else 0,
+             "temporal_attention": 0},
             dict(chunks=chunks, encode_batches=batches if dedup is not None else 0))
 
 
@@ -662,9 +969,7 @@ def run_main_path(args, sequences, device, env=None):
     from endodav_tpu_torch.eval import engine
 
     env = env or {}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with _env(env):
         opt = eval_options(args)
         forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
         counters = _serving_counters()
@@ -676,12 +981,6 @@ def run_main_path(args, sequences, device, env=None):
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
         expect, passes = expected_serving_launches(opt, forward, sequences)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     name = " ".join(f"{k}={v}" for k, v in env.items()) + " " + (" ".join(args) or "CLI default")
     for line in report(result):
         print(f"[main path {name.strip()}] {line}")
@@ -694,6 +993,76 @@ def run_main_path(args, sequences, device, env=None):
     require(launches == expect, f"main path {name}: launches {launches}, expected {expect}")
     return {"args": args, "name": name.strip(), "ms_per_frame": result["mean_infer_ms"],
             "launches": launches, **passes, "metrics": [float(v) for v in vals]}
+
+
+def run_streaming(args, sequence, device, env=None):
+    """`DepthStreamer` as a live caller drives it: the engine's model and
+    forward (dedup where the engine picks it), one frame pushed at a time
+    with a synchronise after each push, then `flush`.  The launches of
+    every serving kernel are set to 0 just before the stream and read just
+    after; the streamed depth is held against `infer_video_depth(...,
+    stitch="host")` on the card (1e-4) and the buffer against 2*INFER_LEN.
+    Reports the median ms per push and per fired window (the push that
+    fires one, its depth back on the host)."""
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.eval.streaming import DepthStreamer
+    from endodav_tpu_torch.eval.video_inference import infer_video_depth, window_indices
+    from endodav_tpu_torch.models.endodav import INFER_LEN
+    from endodav_tpu_torch.models.vit import VIT_CONFIGS
+
+    frames = sequence["colors"]
+    n = len(frames)
+    env = env or {}
+    with _env(env):
+        opt = eval_options(args)
+        forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
+        shape = tuple(opt.depth_image_shape)
+        streamer = DepthStreamer(forward, shape, dedup=forward.dedup, device=device)
+        counters = _serving_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        out, push_ms, window_ms, max_buf = [], [], [], 0
+        torch.cuda.synchronize(device)
+        for f in frames:
+            t0 = time.perf_counter()
+            new = streamer.push(f)
+            torch.cuda.synchronize(device)
+            push_ms.append((time.perf_counter() - t0) * 1e3)
+            if new:
+                window_ms.append(push_ms[-1])
+            out.extend(new)
+            max_buf = max(max_buf, streamer.frames_buffered)
+        t0 = time.perf_counter()
+        out.extend(streamer.flush())
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: fn.launches for k, fn in counters.items()}
+        rcu = rcu_routed(forward.model)
+        offline = infer_video_depth(forward, frames, shape, opt.chunk_windows, device, "host",
+                                    forward.dedup)
+    got = np.stack(out)
+    err = float(np.abs(got - offline).max())
+    windows = len(window_indices(n))
+    depth = VIT_CONFIGS[opt.encoder]["depth"]
+    dedup = forward.dedup is not None
+    # per push (dedup) or per window: one flash attention a ViT block; per
+    # window two temporal blocks a motion module (vits: all C < 512) and
+    # one head suffix, seven fused RCUs where they route
+    expect = {"flash_attention": depth * (n if dedup else windows),
+              "fused_temporal_block": 8 * windows, "fused_temporal_block_grouped": 0,
+              "fused_mlp": 0, "fused_rcu": RCU_PER_SUFFIX * windows if rcu else 0,
+              "temporal_attention": 0}
+    name = " ".join([*(f"{k}={v}" for k, v in env.items()), *args]) or "CLI default"
+    row = {"name": name, "dedup": dedup, "frames": n, "windows": windows,
+           "ms_per_push": statistics.median(push_ms), "ms_per_window": statistics.median(window_ms),
+           "flush_ms": flush_ms, "max_buffered": max_buf, "err_vs_offline": err,
+           "launches": launches}
+    print(f"[streaming] {row} ({card_line()})")
+    require(got.shape == offline.shape, f"streaming {name}: {got.shape} vs {offline.shape}")
+    require(bool(np.all(np.isfinite(got))) and err <= 1e-4,
+            f"streaming {name}: max |Δ| against offline {err}")
+    require(max_buf <= 2 * INFER_LEN, f"streaming {name}: {max_buf} frames buffered")
+    require(launches == expect, f"streaming {name}: launches {launches}, expected {expect}")
+    return row
 
 
 def write_scared_tree(root, n_frames=24, h=512, w=640, step=(3, 4)):
@@ -729,19 +1098,20 @@ def train_options(root, *extra):
     return EndoDAVOptions().parse([*TRAIN_FLAGS, "--data_path", root, *extra])
 
 
-def check_small_step(device, root):
+def check_small_step(device, root, env=None):
     """One training step of a small configuration on the card (kernels)
     and on the CPU (plain versions), from the same seed weights and the
-    same loader batch."""
+    same loader batch, with ``env`` set for both steps."""
     from endodav_tpu_torch.train.trainer import Trainer
 
     args = ["--height", "64", "--width", "96", "--T", "4", "--depth_image_shape", "56", "70"]
     gpu = Trainer(train_options(root, *args), device)
     cpu = Trainer(train_options(root, *args, "--no_cuda"))
     batch = next(iter(cpu.train_loader))
-    got = gpu.train_one_batch(batch)
-    with torch.backends.mkldnn.flags(enabled=False):  # oneDNN's reduced-precision convs
-        want = cpu.train_one_batch(batch)
+    with _env(env or {}):
+        got = gpu.train_one_batch(batch)
+        with torch.backends.mkldnn.flags(enabled=False):  # oneDNN's reduced-precision convs
+            want = cpu.train_one_batch(batch)
     errs = {}
     for k in ("loss_0", "loss"):
         a, b = float(got[k]), float(want[k])
@@ -762,7 +1132,8 @@ def check_small_step(device, root):
         errs[f"update {label}"] = (pg.detach().cpu() - pc.detach())[sure].abs().max().item()
         require(errs[f"update {label}"] <= STEP_UPDATE_ATOL,
                 f"small step: updated {pname} differs by {errs[f'update {label}']}")
-    print(f"[small step] card vs CPU, 64x96 T=4 ViT 56x70: losses card "
+    label = " ".join(f"{k}={v}" for k, v in (env or {}).items())
+    print(f"[small step {label}] card vs CPU, 64x96 T=4 ViT 56x70: losses card "
           f"{float(got['loss_0']):.6f}/{float(got['loss']):.6f}, errors {errs}")
     return errs
 
@@ -771,16 +1142,22 @@ def _kernel_counters():
     from endodav_tpu_torch.kernels import warp_matmul as W
     from endodav_tpu_torch.kernels.flash_attention import qkv_attention
     from endodav_tpu_torch.kernels.fused_temporal_block import fused_temporal_block
+    from endodav_tpu_torch.kernels.temporal_attention import temporal_attention
 
     return {"grid_sample_fwd": W.grid_sample_fwd_cuda,
             "grid_sample_bwd_coord": W.grid_sample_bwd_coord_cuda,
-            "grid_sample_bwd_fused": W.grid_sample_bwd_fused_cuda, "splat": W.splat_cuda,
-            "flash_attention": qkv_attention, "fused_temporal_block": fused_temporal_block}
+            "grid_sample_bwd_fused": W.grid_sample_bwd_fused_cuda,
+            "grid_sample_fwd_cp": W.grid_sample_fwd_cp_cuda,
+            "grid_sample_bwd_coord_cp": W.grid_sample_bwd_coord_cp_cuda,
+            "grid_sample_bwd_fused_cp": W.grid_sample_bwd_fused_cp_cuda, "splat": W.splat_cuda,
+            "flash_attention": qkv_attention, "fused_temporal_block": fused_temporal_block,
+            "temporal_attention": temporal_attention}
 
 
 def run_training(device, root, steps=4, trace_dir=None):
     """`Trainer` at full width on the synthetic tree: `steps` steps of
-    `train_one_batch`, each checked; returns the launches and times."""
+    `train_one_batch`, then CP_STEPS more with ENDODAV_WARP_CP=1 (the
+    channel-plane warps), each checked; returns the launches and times."""
     from endodav_tpu_torch.ops import sampling
     from endodav_tpu_torch.train.trainer import Trainer
 
@@ -810,7 +1187,9 @@ def run_training(device, root, steps=4, trace_dir=None):
         splat_coords.append((x.detach().clone(), y.detach().clone(), height, width))
         return splat(x, y, height, width)
 
-    for step in range(1, steps + 1):
+    cp_times = []
+    for step in range(1, steps + CP_STEPS + 1):
+        cp = step > steps
         if step == 1:
             sampling.splat_mm = keep_coords
         batch = next(it)
@@ -820,17 +1199,19 @@ def run_training(device, root, steps=4, trace_dir=None):
             fn.launches = 0
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        scalars = trainer.train_one_batch(batch)
-        loss, loss_0 = float(scalars["loss"]), float(scalars["loss_0"])  # waits for the step
+        with _env({"ENDODAV_WARP_CP": "1"} if cp else {}):
+            scalars = trainer.train_one_batch(batch)
+            loss, loss_0 = float(scalars["loss"]), float(scalars["loss_0"])  # waits for the step
         torch.cuda.synchronize(device)
-        times.append((time.perf_counter() - t0) * 1e3)
+        (cp_times if cp else times).append((time.perf_counter() - t0) * 1e3)
         launches = {k: fn.launches for k, fn in counters.items()}
         changed = {k: not torch.equal(before[k], p.detach()) for k, p in watch.items()}
         # updated = Adam stepped the parameter: its gate was open and it got
         # a gradient (dvlora vectors at init get gradients near 1e-15, whose
         # first Adam step, lr * g / (|g| + 1e-8), is below their f32 ulp)
         updated = {k: adam_steps(p) == counts[k] + 1 for k, p in watch.items()}
-        print(f"[train] step {step}: loss {loss:.6f} loss_0 {loss_0:.6f} {times[-1]:.1f} ms "
+        print(f"[train] step {step}{' ENDODAV_WARP_CP=1' if cp else ''}: loss {loss:.6f} "
+              f"loss_0 {loss_0:.6f} {(cp_times if cp else times)[-1]:.1f} ms "
               f"launches {launches} changed {changed} updated {updated}")
         require(np.isfinite(loss) and np.isfinite(loss_0), f"step {step}: loss not finite")
         require(not changed["frozen"] and not updated["frozen"],
@@ -842,8 +1223,8 @@ def run_training(device, root, steps=4, trace_dir=None):
         require(updated["lora_U"] == (not ab_phase) and (ab_phase or not changed["lora_B"])
                 and (not ab_phase or not changed["lora_U"]),
                 f"step {step}: dvlora U updated {updated['lora_U']}, expected {not ab_phase}")
-        require(launches == STEP_LAUNCHES,
-                f"step {step}: launches {launches}, expected {STEP_LAUNCHES}")
+        expect = STEP_LAUNCHES_CP if cp else STEP_LAUNCHES
+        require(launches == expect, f"step {step}: launches {launches}, expected {expect}")
         for k in totals:
             totals[k] += launches[k]
         if step == 1:
@@ -858,12 +1239,14 @@ def run_training(device, root, steps=4, trace_dir=None):
     peak = torch.cuda.max_memory_allocated(device)
     ms_step = statistics.median(times[1:])
     print(f"[train] {ms_step:.1f} ms/step (median of steps 2-{steps}), peak memory of steps "
-          f"2-{steps} {peak / 2 ** 30:.2f} GiB ({card_line()})")
+          f"2-{steps + CP_STEPS} {peak / 2 ** 30:.2f} GiB ({card_line()})")
     if trace_dir:
         profile_step(trainer, next(it), trace_dir)
     it.close()
+    print(f"[train] ENDODAV_WARP_CP=1 steps {steps + 1}-{steps + CP_STEPS}: "
+          f"{[round(t, 1) for t in cp_times]} ms")
     return {"launches": totals, "ms_per_step": ms_step, "step_ms": times, "peak_bytes": peak,
-            "splat": agree}
+            "splat": agree, "cp_step_ms": cp_times}
 
 
 # kernel-name fragments -> the categories of the profiles' breakdowns
@@ -877,6 +1260,8 @@ PROFILE_CATEGORIES = [
     ("port: grouped temporal block", ("::grouped_kernel<",)),
     ("port: fused temporal block", ("::block_kernel<",)),
     ("port: fused MLP", ("::mlp_kernel<",)),
+    ("port: fused RCU", ("::rcu_kernel<",)),
+    ("port: temporal attention", ("::temporal_attn_kernel<",)),
     ("cuDNN conv data grad", ("dgrad",)),
     ("cuDNN conv weight grad", ("wgrad", "winogradWgrad")),
     ("cuDNN conv layout transposes", ("nhwcToNchw", "nchwToNhwc")),
@@ -980,21 +1365,41 @@ def main() -> int:
     flash_grad_err = check_flash_grad(device)
     temporal_rows = check_temporal(device)
     mlp_rows = check_fused_mlp(device)
+    rcu_rows = check_fused_rcu(device)
+    tattn_rows, tattn_grad_err = check_temporal_attention(device)
     int8_row = check_int8(device)
     warp_rows = check_warps(device)
+    cp_rows = check_warps_cp(device)
     splat_row = check_splat(device)
-    model_err = max(check_whole_model(device),
-                    check_whole_model(device, ["--encoder", "vitl", "--merge_lora",
-                                               "--disable_residual_block"], (112, 140), 4))
+    from endodav_tpu_torch.kernels.fused_rcu import fused_rcu
+    from endodav_tpu_torch.kernels.temporal_attention import temporal_attention
 
-    sequences = synthetic_sequences()
-    runs = [run_main_path(VITL_ARGS, sequences[:1], device),
+    model_err = max(
+        check_whole_model(device),
+        check_whole_model(device, env={"ENDODAV_FUSED_RCU": "1"}, counter=fused_rcu,
+                          expect_launches=RCU_PER_SUFFIX),
+        check_whole_model(device, pos_embedding_type="rope", counter=temporal_attention,
+                          expect_launches=8),
+        check_whole_model(device, ["--encoder", "vitl", "--merge_lora",
+                                   "--disable_residual_block"], (112, 140), 4))
+
+    # one 64-frame sequence a leg: the host metrics of a 512x640 sequence
+    # take most of a leg's wall time
+    sequences = synthetic_sequences(n_seq=1)
+    runs = [run_main_path(VITL_ARGS, sequences, device),
             run_main_path([*HEADLINE, "--chunk_windows", "2"], sequences, device),
             run_main_path([*HEADLINE, "--chunk_windows", "2"], sequences, device,
                           env={"ENDODAV_FUSED_MLP": "1"}),
+            run_main_path([*HEADLINE, "--chunk_windows", "2"], sequences, device,
+                          env={"ENDODAV_FUSED_RCU": "1"}),
             run_main_path([], sequences, device)]
     for r in runs:
         print(f"[main path] {r['name']}: {r['ms_per_frame']:.3f} ms/frame ({card})")
+    streams = [run_streaming(HEADLINE, sequences[0], device, env={"ENDODAV_FUSED_RCU": "1"}),
+               run_streaming([], sequences[0], device, env={"ENDODAV_FUSED_RCU": "1"})]
+    for r in streams:
+        print(f"[streaming] {r['name']}: median {r['ms_per_push']:.3f} ms a push, "
+              f"{r['ms_per_window']:.3f} ms a fired window ({card})")
     args = sys.argv[1:]
     if "--profile-serving" in args:
         profile_serving(device, sequences[0], args[args.index("--profile-serving") + 1])
@@ -1004,6 +1409,7 @@ def main() -> int:
         write_scared_tree(root)
         print(f"[train] synthetic SCARED tree written in {time.perf_counter() - t0:.1f} s")
         check_small_step(device, root)
+        check_small_step(device, root, env={"ENDODAV_WARP_CP": "1"})
         trace_dir = args[args.index("--profile-step") + 1] if "--profile-step" in args else None
         train = run_training(device, root, trace_dir=trace_dir)
 
@@ -1017,15 +1423,18 @@ def main() -> int:
         return next(r for r in rows if r["shape"] == shape and r["dtype"] == "float32")
 
     def served(name):
-        return sum(r["launches"][name] for r in runs)
+        return sum(r["launches"][name] for r in runs + streams)
 
     f32 = lambda rows: max(r["err"] for r in rows if r["dtype"] == "float32")  # noqa: E731
     block_rows = [r for r in temporal_rows if r["kernel"] == "block"]
     grouped_rows = [r for r in temporal_rows if r["kernel"] == "grouped"]
     colour = next(r for r in warp_rows if r["call"] == "colour synthesis")
     depth = next(r for r in warp_rows if r["call"] == "depth warps")
+    colour_cp = next(r for r in cp_rows if r["call"] == "colour synthesis")
+    consistency_cp = next(r for r in cp_rows if r["call"] == "flow_consistency")
     trained = train["launches"]
     warp_src, warp_py = "endodav_tpu_torch/csrc/warp.cu", "endodav_tpu/kernels/warp_matmul.py"
+    cp_err = lambda row, keys: max(row[f"{k}_vs_plain"] for k in keys)  # noqa: E731
     kernels = [
         entry("flash_attention", "endodav_tpu_torch/csrc/flash_attention.cu",
               "endodav_tpu/kernels/flash_attention.py:43",
@@ -1041,29 +1450,53 @@ def main() -> int:
               "endodav_tpu/kernels/fused_temporal_block.py:120",
               served("fused_temporal_block_grouped"), f32(grouped_rows),
               head_of(grouped_rows, "rows=1702 T=32 C=1024"), "rows=1702 T=32 C=1024"),
+        entry("temporal_attention", "endodav_tpu_torch/csrc/temporal_attention.cu",
+              "endodav_tpu/kernels/temporal_attention.py:31",
+              served("temporal_attention") + trained["temporal_attention"],
+              max(f32(tattn_rows), tattn_grad_err),
+              head_of(tattn_rows, "rows=1280 T=16 H=8 Dh=8"), "rows=1280 T=16 H=8 Dh=8"),
         entry("fused_mlp", "endodav_tpu_torch/csrc/fused_mlp.cu",
               "endodav_tpu/kernels/fused_mlp.py:73", served("fused_mlp"), f32(mlp_rows),
               head_of(mlp_rows, "rows=54496 384->1536->384"), "rows=54496 384->1536->384"),
+        entry("fused_rcu", "endodav_tpu_torch/csrc/fused_rcu.cu",
+              "endodav_tpu/kernels/fused_rcu.py:80", served("fused_rcu"), f32(rcu_rows),
+              head_of(rcu_rows, "[32,148,184,64]"), "[32,148,184,64]"),
         entry("grid_sample_fwd", warp_src, f"{warp_py}:327", trained["grid_sample_fwd"],
               max(r["err_out"] for r in warp_rows), colour["fwd"],
               f"colour synthesis, {colour['shape']}"),
+        entry("grid_sample_fwd_cp", warp_src, f"{warp_py}:374", trained["grid_sample_fwd_cp"],
+              max(cp_err(r, ("err_out",)) for r in cp_rows), colour_cp["fwd"],
+              f"colour synthesis, {colour_cp['shape']}"),
         entry("grid_sample_bwd_coord", warp_src, f"{warp_py}:436",
               trained["grid_sample_bwd_coord"],
               max(max(r["err_dfx"], r["err_dfy"]) for r in warp_rows if "err_dimg" not in r),
               colour["bwd"], f"colour synthesis, {colour['shape']}"),
+        entry("grid_sample_bwd_coord_cp", warp_src, f"{warp_py}:637",
+              trained["grid_sample_bwd_coord_cp"], cp_err(colour_cp, ("err_dfx", "err_dfy")),
+              colour_cp["bwd"], f"colour synthesis, {colour_cp['shape']}"),
         entry("grid_sample_bwd_fused", warp_src, f"{warp_py}:488",
               trained["grid_sample_bwd_fused"],
               max(max(r["err_dfx"], r["err_dfy"], r["err_dimg"])
                   for r in warp_rows if "err_dimg" in r),
               depth["bwd"], f"depth warps, {depth['shape']}"),
+        entry("grid_sample_bwd_fused_cp", warp_src, f"{warp_py}:562",
+              trained["grid_sample_bwd_fused_cp"],
+              cp_err(consistency_cp, ("err_dfx", "err_dfy")), consistency_cp["bwd"],
+              f"flow consistency, {consistency_cp['shape']} (checked only: the step's "
+              f"fused backward is C=1, which never takes planes)"),
         entry("splat", warp_src, f"{warp_py}:1029", trained["splat"],
               max(splat_row["err_occ"], splat_row["err_dx"], splat_row["err_dy"]), splat_row,
               splat_row["shape"]),
     ]
+    require(len(kernels) == 13, f"{len(kernels)} kernel entries, expected 13")
+    missing = [k["name"] for k in kernels if k["launches"] == 0
+               and k["name"] != "grid_sample_bwd_fused_cp"]
+    require(not missing, f"kernels of the main paths never launched: {missing}")
     print(f"[summary] int8_dense {int8_row['ms']:.3f} ms vs f32 linear "
           f"{int8_row['f32_linear_ms']:.3f} ms at {int8_row['shape']} ({card})")
     print(f"[summary] whole model max |Δdisp| {model_err:.3e}; training "
-          f"{train['ms_per_step']:.1f} ms/step, peak {train['peak_bytes'] / 2 ** 30:.2f} GiB")
+          f"{train['ms_per_step']:.1f} ms/step, peak {train['peak_bytes'] / 2 ** 30:.2f} GiB; "
+          f"ENDODAV_WARP_CP=1 steps {[round(t, 1) for t in train['cp_step_ms']]} ms")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,12 +2,16 @@
 // kernels of the self-supervised training losses, for Hopper (sm_90a).
 //
 // Replaces (endodav_tpu/kernels/warp_matmul.py):
-//   grid_sample_fwd  <- _fwd_kernel (:327, pallas_call :839; its channel-plane
-//                       twin _fwd_kernel_cp :374 computes the same function)
+//   grid_sample_fwd  <- _fwd_kernel (:327, pallas_call :839) with planes = 0,
+//                       its channel-plane twin _fwd_kernel_cp (:374, pallas_call
+//                       :804) with planes = 1
 //   grid_sample_bwd  <- _bwd_fused_kernel (:488, pallas_call :958) with
 //                       img_grad = 1, _bwd_coord_kernel (:436, pallas_call :978)
-//                       with img_grad = 0, and the epilogue _mm_bwd_epilogue
-//                       (:996) that turns lerp-weight grads into d_fx, d_fy
+//                       with img_grad = 0, their channel-plane twins
+//                       _bwd_fused_kernel_cp (:562, pallas_call :904) and
+//                       _bwd_coord_kernel_cp (:637, pallas_call :924) with
+//                       planes = 1, and the epilogue _mm_bwd_epilogue (:996)
+//                       that turns lerp-weight grads into d_fx, d_fy
 //   splat            <- _splat_kernel (:1029, pallas_call :1107)
 //
 // The functions are those of endodav_tpu/ops/sampling.py (:114-134 the
@@ -17,7 +21,9 @@
 // bands, lane windows, tiles or packed coordinates here.
 //
 // Semantics (identical to the plain versions in kernels/warp_matmul.py):
-//   img [B_img, H, W, C] f32 channels-last; fx, fy [B_img * img_tile, P]
+//   img [B_img, H, W, C] f32 channels-last, or with PLANES (the
+//   ENDODAV_WARP_CP route) [B_img, C, H, W] f32 channel planes, and d_img
+//   in the image's layout; fx, fy [B_img * img_tile, P]
 //   f32 fractional source pixel coordinates (align_corners already resolved
 //   by the caller); grid element bg samples image bg / img_tile.  Corners
 //   floor(f) and floor(f) + 1 are clipped into the image (border); in zeros
@@ -34,6 +40,14 @@
 // consecutive pixels so coordinate and output accesses coalesce, channels
 // looped in registers (C is a template parameter, 1..4).
 //
+// Channel planes: the TPU's plane layout existed to share its one-hot mask
+// builds across channels; a gather has no masks to share.  On the card the
+// two layouts differ only in where a corner's C values sit: C consecutive
+// floats (interleaved) or C floats a plane apart (planes), so each corner
+// read touches C sectors instead of one.  The same kernels serve both,
+// with the layout a template parameter; the output and the cotangent stay
+// [Bg, P, C] in both.
+//
 // Atomics: the fused backward accumulates d_img and the splat accumulates
 // occupancy with f32 atomicAdd.  The order in which the additions land
 // changes from run to run, so both results vary in their last bits between
@@ -44,6 +58,12 @@
 namespace {
 
 constexpr int THREADS = 256;
+
+// offset of pixel (y, x), channel c of one image [H, W, C] or [C, H, W]
+template <int C, bool PLANES>
+__device__ __forceinline__ long long pix(int y, int x, int c, int h, int w) {
+  return PLANES ? ((long long)c * h + y) * w + x : ((long long)y * w + x) * C + c;
+}
 
 struct Axis {
   int i0, i1;      // clipped corner indices floor(f), floor(f) + 1
@@ -74,7 +94,7 @@ __device__ __forceinline__ Axis axis_corners(float f, int size, bool zeros) {
   return a;
 }
 
-template <int C>
+template <int C, bool PLANES>
 __global__ void __launch_bounds__(THREADS)
 grid_sample_fwd_kernel(const float* __restrict__ img, const float* __restrict__ fx,
                        const float* __restrict__ fy, float* __restrict__ out, long long total,
@@ -85,20 +105,20 @@ grid_sample_fwd_kernel(const float* __restrict__ img, const float* __restrict__ 
   const float* im = img + (bg / img_tile) * static_cast<long long>(h) * w * C;
   const Axis ax = axis_corners(__ldg(fx + i), w, zeros);
   const Axis ay = axis_corners(__ldg(fy + i), h, zeros);
-  const float* r0 = im + static_cast<long long>(ay.i0) * w * C;
-  const float* r1 = im + static_cast<long long>(ay.i1) * w * C;
   const float w00 = ay.w0 * ax.w0, w01 = ay.w0 * ax.w1;
   const float w10 = ay.w1 * ax.w0, w11 = ay.w1 * ax.w1;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const float v00 = __ldg(r0 + ax.i0 * C + c), v01 = __ldg(r0 + ax.i1 * C + c);
-    const float v10 = __ldg(r1 + ax.i0 * C + c), v11 = __ldg(r1 + ax.i1 * C + c);
+    const float v00 = __ldg(im + pix<C, PLANES>(ay.i0, ax.i0, c, h, w));
+    const float v01 = __ldg(im + pix<C, PLANES>(ay.i0, ax.i1, c, h, w));
+    const float v10 = __ldg(im + pix<C, PLANES>(ay.i1, ax.i0, c, h, w));
+    const float v11 = __ldg(im + pix<C, PLANES>(ay.i1, ax.i1, c, h, w));
     // the plain version's corner order: (y0, x0), (y0, x1), (y1, x0), (y1, x1)
     out[i * C + c] = w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11;
   }
 }
 
-template <int C, bool IMG_GRAD>
+template <int C, bool IMG_GRAD, bool PLANES>
 __global__ void __launch_bounds__(THREADS)
 grid_sample_bwd_kernel(const float* __restrict__ img, const float* __restrict__ fx,
                        const float* __restrict__ fy, const float* __restrict__ g,
@@ -111,30 +131,32 @@ grid_sample_bwd_kernel(const float* __restrict__ img, const float* __restrict__ 
   const float* im = img + (bg / img_tile) * plane;
   const Axis ax = axis_corners(__ldg(fx + i), w, zeros);
   const Axis ay = axis_corners(__ldg(fy + i), h, zeros);
-  const long long o0 = static_cast<long long>(ay.i0) * w * C;
-  const long long o1 = static_cast<long long>(ay.i1) * w * C;
   // gradients of the four (masked) lerp weights, as the TPU kernels'
   // dw rows (wy0, wy1, wx0, wx1)
   float dwy0 = 0.f, dwy1 = 0.f, dwx0 = 0.f, dwx1 = 0.f;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
+    const long long o00 = pix<C, PLANES>(ay.i0, ax.i0, c, h, w);
+    const long long o01 = pix<C, PLANES>(ay.i0, ax.i1, c, h, w);
+    const long long o10 = pix<C, PLANES>(ay.i1, ax.i0, c, h, w);
+    const long long o11 = pix<C, PLANES>(ay.i1, ax.i1, c, h, w);
     const float gc = __ldg(g + i * C + c);
-    const float v00 = __ldg(im + o0 + ax.i0 * C + c), v01 = __ldg(im + o0 + ax.i1 * C + c);
-    const float v10 = __ldg(im + o1 + ax.i0 * C + c), v11 = __ldg(im + o1 + ax.i1 * C + c);
+    const float v00 = __ldg(im + o00), v01 = __ldg(im + o01);
+    const float v10 = __ldg(im + o10), v11 = __ldg(im + o11);
     dwy0 += gc * (ax.w0 * v00 + ax.w1 * v01);
     dwy1 += gc * (ax.w0 * v10 + ax.w1 * v11);
     dwx0 += gc * (ay.w0 * v00 + ay.w1 * v10);
     dwx1 += gc * (ay.w0 * v01 + ay.w1 * v11);
     if (IMG_GRAD) {
       // img_tile == 1 here (the wrapper refuses anything else), so the
-      // image of grid element bg is bg itself
+      // image of grid element bg is bg itself; d_img has img's layout
       float* d = dimg + bg * plane;
       const float a00 = gc * ay.w0 * ax.w0, a01 = gc * ay.w0 * ax.w1;
       const float a10 = gc * ay.w1 * ax.w0, a11 = gc * ay.w1 * ax.w1;
-      if (a00 != 0.f) atomicAdd(d + o0 + ax.i0 * C + c, a00);
-      if (a01 != 0.f) atomicAdd(d + o0 + ax.i1 * C + c, a01);
-      if (a10 != 0.f) atomicAdd(d + o1 + ax.i0 * C + c, a10);
-      if (a11 != 0.f) atomicAdd(d + o1 + ax.i1 * C + c, a11);
+      if (a00 != 0.f) atomicAdd(d + o00, a00);
+      if (a01 != 0.f) atomicAdd(d + o01, a01);
+      if (a10 != 0.f) atomicAdd(d + o10, a10);
+      if (a11 != 0.f) atomicAdd(d + o11, a11);
     }
   }
   // _mm_bwd_epilogue: w1 = frac(f) * v1, w0 = (1 - frac(f)) * v0, so
@@ -175,24 +197,43 @@ inline unsigned blocks_for(long long total) {
   return static_cast<unsigned>((total + THREADS - 1) / THREADS);
 }
 
-template <int C>
+template <int C, bool PLANES>
 void launch_fwd(const float* img, const float* fx, const float* fy, float* out, long long total,
                 int p, int h, int w, int img_tile, bool zeros, cudaStream_t s) {
-  grid_sample_fwd_kernel<C><<<blocks_for(total), THREADS, 0, s>>>(img, fx, fy, out, total, p, h,
-                                                                  w, img_tile, zeros);
+  grid_sample_fwd_kernel<C, PLANES><<<blocks_for(total), THREADS, 0, s>>>(
+      img, fx, fy, out, total, p, h, w, img_tile, zeros);
+}
+
+template <int C>
+void launch_fwd(const float* img, const float* fx, const float* fy, float* out, long long total,
+                int p, int h, int w, int img_tile, bool zeros, bool planes, cudaStream_t s) {
+  if (planes)
+    launch_fwd<C, true>(img, fx, fy, out, total, p, h, w, img_tile, zeros, s);
+  else
+    launch_fwd<C, false>(img, fx, fy, out, total, p, h, w, img_tile, zeros, s);
+}
+
+template <int C, bool PLANES>
+void launch_bwd(const float* img, const float* fx, const float* fy, const float* g, float* dfx,
+                float* dfy, float* dimg, long long total, int p, int h, int w, int img_tile,
+                bool zeros, cudaStream_t s) {
+  if (dimg != nullptr) {
+    grid_sample_bwd_kernel<C, true, PLANES><<<blocks_for(total), THREADS, 0, s>>>(
+        img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, zeros);
+  } else {
+    grid_sample_bwd_kernel<C, false, PLANES><<<blocks_for(total), THREADS, 0, s>>>(
+        img, fx, fy, g, dfx, dfy, nullptr, total, p, h, w, img_tile, zeros);
+  }
 }
 
 template <int C>
 void launch_bwd(const float* img, const float* fx, const float* fy, const float* g, float* dfx,
                 float* dfy, float* dimg, long long total, int p, int h, int w, int img_tile,
-                bool zeros, cudaStream_t s) {
-  if (dimg != nullptr) {
-    grid_sample_bwd_kernel<C, true><<<blocks_for(total), THREADS, 0, s>>>(
-        img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, zeros);
-  } else {
-    grid_sample_bwd_kernel<C, false><<<blocks_for(total), THREADS, 0, s>>>(
-        img, fx, fy, g, dfx, dfy, nullptr, total, p, h, w, img_tile, zeros);
-  }
+                bool zeros, bool planes, cudaStream_t s) {
+  if (planes)
+    launch_bwd<C, true>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, zeros, s);
+  else
+    launch_bwd<C, false>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, zeros, s);
 }
 
 bool bad_shape(int bg, int p, int h, int w, int c, int img_tile) {
@@ -204,39 +245,49 @@ bool bad_shape(int bg, int p, int h, int w, int c, int img_tile) {
 
 // All entry points return the cudaError_t of the launch (0 on success).
 
-// out [bg, p, c] = bilinear sample of img [bg / img_tile, h, w, c] at (fx, fy) [bg, p]
+// out [bg, p, c] = bilinear sample of img [bg / img_tile, h, w, c] (with
+// planes, [bg / img_tile, c, h, w]) at (fx, fy) [bg, p]
 extern "C" int endodav_grid_sample_fwd(const float* img, const float* fx, const float* fy,
                                        float* out, int bg, int p, int h, int w, int c,
-                                       int img_tile, int zeros, void* stream) {
+                                       int img_tile, int zeros, int planes, void* stream) {
   if (bad_shape(bg, p, h, w, c, img_tile)) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(bg) * p;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool z = zeros != 0, pl = planes != 0;
   switch (c) {
-    case 1: launch_fwd<1>(img, fx, fy, out, total, p, h, w, img_tile, zeros != 0, s); break;
-    case 2: launch_fwd<2>(img, fx, fy, out, total, p, h, w, img_tile, zeros != 0, s); break;
-    case 3: launch_fwd<3>(img, fx, fy, out, total, p, h, w, img_tile, zeros != 0, s); break;
-    default: launch_fwd<4>(img, fx, fy, out, total, p, h, w, img_tile, zeros != 0, s); break;
+    case 1: launch_fwd<1>(img, fx, fy, out, total, p, h, w, img_tile, z, pl, s); break;
+    case 2: launch_fwd<2>(img, fx, fy, out, total, p, h, w, img_tile, z, pl, s); break;
+    case 3: launch_fwd<3>(img, fx, fy, out, total, p, h, w, img_tile, z, pl, s); break;
+    default: launch_fwd<4>(img, fx, fy, out, total, p, h, w, img_tile, z, pl, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // d_fx, d_fy [bg, p] from the cotangent g [bg, p, c]; with dimg non-null
-// (the fused kernel, img_tile 1) also accumulates d_img [bg, h, w, c],
-// which the caller has zeroed.
+// (the fused kernel, img_tile 1) also accumulates d_img in img's layout
+// ([bg, h, w, c], or [bg, c, h, w] with planes), which the caller has zeroed.
 extern "C" int endodav_grid_sample_bwd(const float* img, const float* fx, const float* fy,
                                        const float* g, float* dfx, float* dfy, float* dimg,
                                        int bg, int p, int h, int w, int c, int img_tile,
-                                       int zeros, void* stream) {
+                                       int zeros, int planes, void* stream) {
   if (bad_shape(bg, p, h, w, c, img_tile) || (dimg != nullptr && img_tile != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(bg) * p;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool z = zeros != 0;
+  const bool z = zeros != 0, pl = planes != 0;
   switch (c) {
-    case 1: launch_bwd<1>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, z, s); break;
-    case 2: launch_bwd<2>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, z, s); break;
-    case 3: launch_bwd<3>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, z, s); break;
-    default: launch_bwd<4>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, z, s); break;
+    case 1:
+      launch_bwd<1>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, z, pl, s);
+      break;
+    case 2:
+      launch_bwd<2>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, z, pl, s);
+      break;
+    case 3:
+      launch_bwd<3>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, z, pl, s);
+      break;
+    default:
+      launch_bwd<4>(img, fx, fy, g, dfx, dfy, dimg, total, p, h, w, img_tile, z, pl, s);
+      break;
   }
   return static_cast<int>(cudaGetLastError());
 }

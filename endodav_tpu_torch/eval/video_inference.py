@@ -31,7 +31,8 @@ from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.utils.envflags import env_auto, env_on
 
 __all__ = ["keep_aspect_size", "window_indices", "stitch_plan", "infer_video_depth",
-           "DedupWindowForward", "dedup_wins", "dedup_by_default"]
+           "DedupWindowForward", "dedup_wins", "dedup_by_default", "frame_scale",
+           "upload_resized", "window_chunk_forward"]
 
 
 class DedupWindowForward:
@@ -239,17 +240,41 @@ def _device_stitch(depth_chunks, num_windows: int, n: int, fh: int, fw: int) -> 
     return out.cpu().numpy()
 
 
-def _upload_resized(frames: np.ndarray, idx: np.ndarray, scale: float, th: int, tw: int,
-                    device: torch.device) -> torch.Tensor:
-    """Frames ``idx`` uploaded as their own dtype (pinned on CUDA), scaled
-    to [0, 1] and bicubic-resized to (th, tw) on the device."""
-    src = torch.from_numpy(np.ascontiguousarray(frames[idx]))
+def frame_scale(frames: np.ndarray) -> float:
+    """The divisor that brings frames to [0, 1]: 255 for uint8 and for
+    float frames in [0, 255] (largest value above 1.5), else 1."""
+    if frames.dtype == np.uint8:
+        return 255.0
+    return 255.0 if float(np.max(frames)) > 1.5 else 1.0
+
+
+def upload_resized(frames: np.ndarray, scale: float, th: int, tw: int,
+                   device: torch.device) -> torch.Tensor:
+    """Frames [n, H, W, 3] uploaded as their own dtype (pinned on CUDA),
+    divided by ``scale`` and bicubic-resized (align_corners=False) to
+    (th, tw) on the device: the per-window preprocess of the JAX package
+    (`eval/video_inference.py:_pre_fn`, `eval/streaming.py:108-126`)."""
+    src = torch.from_numpy(np.ascontiguousarray(frames))
     if device.type == "cuda":
         src = src.pin_memory()
     slab = src.to(device, non_blocking=True).float()
     if scale != 1.0:
         slab = slab / scale
     return resize2d(slab, (th, tw), "bicubic", align_corners=False)
+
+
+def window_chunk_forward(forward_windows: Callable[[torch.Tensor], torch.Tensor], fh: int,
+                         fw: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """[C, INFER_LEN, th, tw, 3] windows -> [C*INFER_LEN, fh, fw] disparity
+    upsampled (bilinear, align_corners=True) to the source size: JAX's
+    `_chunk_fn(forward_windows, C, ...)`; the streamer runs it with C=1."""
+
+    def run(win: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            disp = forward_windows(win)
+            return resize2d(disp, (fh, fw), "bilinear", align_corners=True)[..., 0]
+
+    return run
 
 
 def infer_video_depth(
@@ -278,11 +303,9 @@ def infer_video_depth(
     device = torch.device(device)
     n, fh, fw, _ = frames.shape
     th, tw = keep_aspect_size(fh, fw, *image_shape)
-    if frames.dtype == np.uint8:
-        scale = 255.0
-    else:
+    if frames.dtype != np.uint8:
         frames = np.asarray(frames, np.float32)
-        scale = 255.0 if float(frames.max()) > 1.5 else 1.0
+    scale = frame_scale(frames)
 
     idx = window_indices(n)
     num_windows = idx.shape[0]
@@ -291,8 +314,8 @@ def infer_video_depth(
         if dedup is not None and not env_on("ENDODAV_NO_DEDUP"):
             fb = dedup.encode_batch_for(n)
             pad_fidx = np.minimum(np.arange(-(-n // fb) * fb), n - 1)
-            parts = [dedup.encode(_upload_resized(frames, pad_fidx[b0:b0 + fb], scale, th, tw,
-                                                  device))
+            parts = [dedup.encode(upload_resized(frames[pad_fidx[b0:b0 + fb]], scale, th, tw,
+                                                 device))
                      for b0 in range(0, len(pad_fidx), fb)]
             per_frame = [torch.cat(ps) if len(ps) > 1 else ps[0] for ps in zip(*parts)]
             del parts
@@ -305,13 +328,13 @@ def infer_video_depth(
             idx_padded = np.concatenate([idx, np.repeat(idx[-1:], pad_to - num_windows, axis=0)])
             resized = torch.empty((n, th, tw, 3), dtype=torch.float32, device=device)
             for s0 in range(0, n, INFER_LEN):
-                sl = np.arange(s0, min(s0 + INFER_LEN, n))
-                resized[s0:s0 + INFER_LEN] = _upload_resized(frames, sl, scale, th, tw, device)
+                resized[s0:s0 + INFER_LEN] = upload_resized(frames[s0:s0 + INFER_LEN], scale, th,
+                                                            tw, device)
+            run = window_chunk_forward(forward_windows, fh, fw)
             for c0 in range(0, pad_to, chunk_windows):
                 w_idx = torch.from_numpy(idx_padded[c0:c0 + chunk_windows].reshape(-1)).to(device)
                 win = resized.index_select(0, w_idx).reshape(chunk_windows, INFER_LEN, th, tw, 3)
-                disp = forward_windows(win)
-                outs.append(resize2d(disp, (fh, fw), "bilinear", align_corners=True)[..., 0])
+                outs.append(run(win))
         if stitch == "device":
             return _device_stitch(outs, num_windows, n, fh, fw)
         outs = [o.float().cpu() for o in outs]

@@ -26,7 +26,8 @@ __all__ = ["library", "build_log", "check", "dtype_code", "stream_of"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-_SOURCES = ("flash_attention.cu", "fused_temporal_block.cu", "fused_mlp.cu", "warp.cu")
+_SOURCES = ("flash_attention.cu", "fused_temporal_block.cu", "fused_mlp.cu", "warp.cu",
+            "fused_rcu.cu", "temporal_attention.cu")
 _HEADERS = ("common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,10 +52,13 @@ _SIGNATURES = {
     "endodav_fused_mlp": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                            _int, _vp], _int),
     "endodav_grid_sample_fwd": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
-                                 _vp], _int),
+                                 _int, _vp], _int),
     "endodav_grid_sample_bwd": ([_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
-                                 _int, _int, _int, _vp], _int),
+                                 _int, _int, _int, _int, _vp], _int),
     "endodav_splat": ([_vp, _vp, _vp, _int, _int, _int, _int, _vp], _int),
+    "endodav_fused_rcu": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp], _int),
+    "endodav_temporal_attention": ([_int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
+                                    _f, _vp], _int),
 }
 
 

@@ -18,10 +18,19 @@ has no fast gather).
   x, y [B, P] onto an occupancy map [B, h, w] f32.  Its backward
   recomputes the plain version's autograd, as JAX's `_splat_fast_bwd`.
 
+Channel planes (``ENDODAV_WARP_CP=1``, C > 1; JAX's `_use_cp`): the image
+moves once a call to [B, C, H, W] f32 planes, as JAX's wrapper does
+(:798, :894), and the plane-layout kernels sample it there (JAX's
+`_fwd_kernel_cp`, `_bwd_coord_kernel_cp`, `_bwd_fused_kernel_cp`); the
+fused backward accumulates d_img into planes, moved back to [B, H, W, C].
+The function is the same; on the CPU the plane route runs its own plain
+version, `grid_sample_planes_reference`, a gather from the planes.
+
 On a CUDA tensor each wrapper launches its kernel or raises; the plain
-versions (`grid_sample_reference`, `splat_reference`) run only for CPU
-tensors, where autograd differentiates them.  Each launching function
-counts its launches in ``.launches``.
+versions (`grid_sample_reference`, `grid_sample_planes_reference`,
+`splat_reference`) run only for CPU tensors, where autograd
+differentiates them.  Each launching function counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -29,10 +38,12 @@ from __future__ import annotations
 import torch
 
 from endodav_tpu_torch.kernels import _build
+from endodav_tpu_torch.utils.envflags import env_on
 
-__all__ = ["grid_sample_mm", "splat_mm", "grid_sample_reference", "splat_reference",
-           "grid_sample_fwd_cuda", "grid_sample_bwd_coord_cuda", "grid_sample_bwd_fused_cuda",
-           "splat_cuda"]
+__all__ = ["grid_sample_mm", "splat_mm", "grid_sample_reference", "grid_sample_planes_reference",
+           "splat_reference", "grid_sample_fwd_cuda", "grid_sample_bwd_coord_cuda",
+           "grid_sample_bwd_fused_cuda", "grid_sample_fwd_cp_cuda", "grid_sample_bwd_coord_cp_cuda",
+           "grid_sample_bwd_fused_cp_cuda", "splat_cuda", "use_cp"]
 
 MAX_CHANNELS = 4  # the kernels' channel loop is unrolled for C = 1..4
 
@@ -67,6 +78,34 @@ def grid_sample_reference(img, fx, fy, zeros_mode: bool, img_tile: int = 1):
     return out.reshape(bg, *out_sp, c)
 
 
+def grid_sample_planes_reference(planes, fx, fy, zeros_mode: bool, img_tile: int = 1):
+    """Plain version of the channel-plane kernels: the gather of
+    `grid_sample_reference` from planes [B, C, H, W] -> [B*img_tile, *out, C]."""
+    b_img, c, h, w = planes.shape
+    bg = fx.shape[0]
+    out_sp = fx.shape[1:]
+    flat = planes.reshape(b_img, c, h * w)
+    src = (torch.arange(bg, device=planes.device) // img_tile)[:, None, None]
+    chan = torch.arange(c, device=planes.device)[None, :, None]
+    (x0, x1), (wx0, wx1) = _axis(fx.reshape(bg, 1, -1), w, zeros_mode)
+    (y0, y1), (wy0, wy1) = _axis(fy.reshape(bg, 1, -1), h, zeros_mode)
+    out = 0.0
+    for yi, wy in ((y0, wy0), (y1, wy1)):
+        for xi, wx in ((x0, wx0), (x1, wx1)):
+            out = out + (wy * wx) * flat[src, chan, yi * w + xi]
+    return out.transpose(1, 2).reshape(bg, *out_sp, c)
+
+
+def use_cp(c: int) -> bool:
+    """The channel-plane route: C > 1 under ``ENDODAV_WARP_CP`` (JAX's `_use_cp`)."""
+    return c > 1 and env_on("ENDODAV_WARP_CP")
+
+
+def to_planes(img: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, C, H, W] f32 planes (JAX's wrapper, :798 and :894)."""
+    return img.float().permute(0, 3, 1, 2).contiguous()
+
+
 def splat_reference(x, y, height: int, width: int):
     """Plain version: `_splat_xla` (ops/sampling.py:181-214 of the JAX
     package) as four `index_add_` scatters; x, y [B, P] -> [B, H, W]."""
@@ -96,8 +135,11 @@ def _require_cuda_f32(what: str, **tensors):
                              f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def _check_shapes(img, fx, fy, img_tile):
-    b_img, h, w, c = img.shape
+def _check_shapes(img, fx, fy, img_tile, planes=False):
+    if planes:
+        b_img, c, h, w = img.shape
+    else:
+        b_img, h, w, c = img.shape
     if not 1 <= c <= MAX_CHANNELS:
         raise ValueError(f"grid_sample: C={c} channels; the kernels take 1..{MAX_CHANNELS}")
     if fx.shape != fy.shape or fx.shape[0] != b_img * img_tile:
@@ -106,25 +148,38 @@ def _check_shapes(img, fx, fy, img_tile):
     return b_img, h, w, c
 
 
-def grid_sample_fwd_cuda(img, fx, fy, zeros_mode: bool, img_tile: int = 1):
-    """Launch the forward kernel; returns [Bg, *out, C] f32."""
+def _launch_fwd(img, fx, fy, zeros_mode, img_tile, planes):
     _require_cuda_f32("grid_sample", img=img, fx=fx, fy=fy)
-    _, h, w, c = _check_shapes(img, fx, fy, img_tile)
+    _, h, w, c = _check_shapes(img, fx, fy, img_tile, planes)
     bg, p = fx.shape[0], fx[0].numel()
     out = torch.empty((*fx.shape, c), dtype=torch.float32, device=img.device)
     lib = _build.library()
     with torch.cuda.device(img.device):
         err = lib.endodav_grid_sample_fwd(img.data_ptr(), fx.data_ptr(), fy.data_ptr(),
                                           out.data_ptr(), bg, p, h, w, c, img_tile,
-                                          int(zeros_mode), _build.stream_of(img))
+                                          int(zeros_mode), int(planes), _build.stream_of(img))
     _build.check(err, "grid_sample_fwd")
+    return out
+
+
+def grid_sample_fwd_cuda(img, fx, fy, zeros_mode: bool, img_tile: int = 1):
+    """Launch the forward kernel on img [B, H, W, C]; returns [Bg, *out, C] f32."""
+    out = _launch_fwd(img, fx, fy, zeros_mode, img_tile, False)
     grid_sample_fwd_cuda.launches += 1
     return out
 
 
-def _launch_bwd(img, fx, fy, g, zeros_mode, img_tile, dimg):
+def grid_sample_fwd_cp_cuda(planes, fx, fy, zeros_mode: bool, img_tile: int = 1):
+    """Launch the plane-layout forward (`_fwd_kernel_cp`) on planes
+    [B, C, H, W]; returns [Bg, *out, C] f32."""
+    out = _launch_fwd(planes, fx, fy, zeros_mode, img_tile, True)
+    grid_sample_fwd_cp_cuda.launches += 1
+    return out
+
+
+def _launch_bwd(img, fx, fy, g, zeros_mode, img_tile, dimg, planes=False):
     _require_cuda_f32("grid_sample backward", img=img, fx=fx, fy=fy, g=g)
-    _, h, w, c = _check_shapes(img, fx, fy, img_tile)
+    _, h, w, c = _check_shapes(img, fx, fy, img_tile, planes)
     bg, p = fx.shape[0], fx[0].numel()
     dfx, dfy = torch.empty_like(fx), torch.empty_like(fy)
     lib = _build.library()
@@ -132,7 +187,7 @@ def _launch_bwd(img, fx, fy, g, zeros_mode, img_tile, dimg):
         err = lib.endodav_grid_sample_bwd(
             img.data_ptr(), fx.data_ptr(), fy.data_ptr(), g.data_ptr(), dfx.data_ptr(),
             dfy.data_ptr(), None if dimg is None else dimg.data_ptr(), bg, p, h, w, c,
-            img_tile, int(zeros_mode), _build.stream_of(img))
+            img_tile, int(zeros_mode), int(planes), _build.stream_of(img))
     _build.check(err, "grid_sample_bwd")
     return dfx, dfy
 
@@ -153,21 +208,49 @@ def grid_sample_bwd_fused_cuda(img, fx, fy, g, zeros_mode: bool):
     return dimg, dfx, dfy
 
 
+def grid_sample_bwd_coord_cp_cuda(planes, fx, fy, g, zeros_mode: bool, img_tile: int = 1):
+    """Plane-layout coordinate-only backward (`_bwd_coord_kernel_cp`)."""
+    out = _launch_bwd(planes, fx, fy, g, zeros_mode, img_tile, None, True)
+    grid_sample_bwd_coord_cp_cuda.launches += 1
+    return out
+
+
+def grid_sample_bwd_fused_cp_cuda(planes, fx, fy, g, zeros_mode: bool):
+    """Plane-layout fused backward (`_bwd_fused_kernel_cp`): (d_planes
+    [B, C, H, W], d_fx, d_fy), d_planes summed with atomics."""
+    dplanes = torch.zeros_like(planes)
+    dfx, dfy = _launch_bwd(planes, fx, fy, g, zeros_mode, 1, dplanes, True)
+    grid_sample_bwd_fused_cp_cuda.launches += 1
+    return dplanes, dfx, dfy
+
+
 class _GridSample(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img, fx, fy, zeros_mode, img_grad, img_tile):
-        ctx.save_for_backward(img, fx, fy)
         ctx.zeros_mode, ctx.img_grad, ctx.img_tile = zeros_mode, img_grad, img_tile
-        return grid_sample_fwd_cuda(img, fx, fy, zeros_mode, img_tile)
+        ctx.cp = use_cp(img.shape[-1])
+        if ctx.cp:  # the planes are kept for the backward
+            img = to_planes(img)
+            out = grid_sample_fwd_cp_cuda(img, fx, fy, zeros_mode, img_tile)
+        else:
+            out = grid_sample_fwd_cuda(img, fx, fy, zeros_mode, img_tile)
+        ctx.save_for_backward(img, fx, fy)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         img, fx, fy = ctx.saved_tensors
         g = g.contiguous()
-        if ctx.img_grad:
+        dimg = None
+        if ctx.img_grad and ctx.cp:
+            dplanes, dfx, dfy = grid_sample_bwd_fused_cp_cuda(img, fx, fy, g, ctx.zeros_mode)
+            dimg = dplanes.permute(0, 2, 3, 1)
+        elif ctx.img_grad:
             dimg, dfx, dfy = grid_sample_bwd_fused_cuda(img, fx, fy, g, ctx.zeros_mode)
-        else:  # the caller declared the image gradient-free
-            dimg = None
+        elif ctx.cp:  # the caller declared the image gradient-free
+            dfx, dfy = grid_sample_bwd_coord_cp_cuda(img, fx, fy, g, ctx.zeros_mode,
+                                                     ctx.img_tile)
+        else:
             dfx, dfy = grid_sample_bwd_coord_cuda(img, fx, fy, g, ctx.zeros_mode, ctx.img_tile)
         return dimg, dfx, dfy, None, None, None
 
@@ -178,13 +261,16 @@ def grid_sample_mm(img, fx, fy, zeros_mode: bool = False, img_grad: bool = True,
     [B*img_tile, *out] (the caller has resolved align_corners into them).
     ``img_grad=False`` declares the image gradient-free; ``img_tile > 1``
     lets grid element bi sample image bi // img_tile and requires
-    ``img_grad=False``."""
+    ``img_grad=False``.  `use_cp` picks the channel-plane route."""
     if img_grad and img_tile != 1:
         raise ValueError("img_tile > 1 requires img_grad=False (grid elements sharing an "
                          "image would race on d_img)")
     if not img_grad:
         img = img.detach()
     if img.device.type == "cpu":
+        if use_cp(img.shape[-1]):
+            return grid_sample_planes_reference(to_planes(img), fx.float(), fy.float(),
+                                                zeros_mode, img_tile)
         return grid_sample_reference(img.float(), fx.float(), fy.float(), zeros_mode,
                                      img_tile)
     if img.device.type != "cuda":
@@ -238,5 +324,6 @@ def splat_mm(x, y, height: int, width: int):
 
 
 for _fn in (grid_sample_fwd_cuda, grid_sample_bwd_coord_cuda, grid_sample_bwd_fused_cuda,
+            grid_sample_fwd_cp_cuda, grid_sample_bwd_coord_cp_cuda, grid_sample_bwd_fused_cp_cuda,
             splat_cuda):
     _fn.launches = 0

@@ -8,6 +8,12 @@ the multi-scale HeadDepth sigmoid heads or the single output-conv head.
 ``prefix`` is strictly per frame; ``suffix`` holds everything that mixes
 frames.  Maps are channels-last [B*T, H, W, C]; parameter names follow
 the reference state-dict keys under ``head.``.
+
+At serving (``train=False``) a ResidualConvUnit of at most 128 channels
+runs the fused CUDA kernel under ``ENDODAV_FUSED_RCU``, exactly where JAX
+routes its Pallas kernel (`endodav_tpu/models/dpt.py:77-82`): every RCU of
+the vits head (features 64), none of vitl's (256).  ``pos_embedding_type``
+("ape" or "rope") goes to the four motion modules, as in JAX.
 """
 
 from __future__ import annotations
@@ -18,9 +24,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from endodav_tpu_torch.kernels.fused_rcu import MAX_CHANNELS, fused_rcu
 from endodav_tpu_torch.models.motion import TemporalModule
 from endodav_tpu_torch.models.vit import conv_nhwc
 from endodav_tpu_torch.ops.resize import resize2d
+from endodav_tpu_torch.utils.envflags import env_on
 
 __all__ = ["DPTDecoder", "HeadDepth"]
 
@@ -34,10 +42,14 @@ class ResidualConvUnit(nn.Module):
 
     def __init__(self, features: int):
         super().__init__()
+        self.features = features
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if (not train and self.features <= MAX_CHANNELS and x.shape[-1] == self.features
+                and env_on("ENDODAV_FUSED_RCU")):
+            return fused_rcu(x, self.conv1, self.conv2)
         y = conv_nhwc(self.conv1, F.relu(x))
         y = conv_nhwc(self.conv2, F.relu(y))
         return y + x
@@ -56,10 +68,10 @@ class FeatureFusionBlock(nn.Module):
         self.resConfUnit2 = ResidualConvUnit(features)
         self.out_conv = nn.Conv2d(features, features, 1)
 
-    def forward(self, x, skip=None, size: tuple[int, int] | None = None):
+    def forward(self, x, skip=None, size: tuple[int, int] | None = None, train: bool = False):
         if skip is not None:
-            x = x + self.resConfUnit1(skip)
-        x = self.resConfUnit2(x)
+            x = x + self.resConfUnit1(skip, train)
+        x = self.resConfUnit2(x, train)
         if size is None:
             size = (x.shape[1] * 2, x.shape[2] * 2)
         return conv_nhwc(self.out_conv, _up(x, tuple(size)))
@@ -111,7 +123,8 @@ class DPTDecoder(nn.Module):
                  out_channels: Sequence[int] = (256, 512, 1024, 1024),
                  num_frames: int = 32, conv_head: bool = True, inv_sigmoid: bool = False,
                  out_sigmoid: bool = False, temporal_lora_variant: str = "none",
-                 lora_rank: int = 4, lora_alpha: float | None = None):
+                 lora_rank: int = 4, lora_alpha: float | None = None,
+                 pos_embedding_type: str = "ape"):
         super().__init__()
         self.conv_head = conv_head
         self.inv_sigmoid = inv_sigmoid
@@ -124,8 +137,8 @@ class DPTDecoder(nn.Module):
             nn.Identity(),
             nn.Conv2d(out_channels[3], out_channels[3], 3, stride=2, padding=1)])
         motion = lambda ch: TemporalModule(  # noqa: E731
-            ch, temporal_max_len=num_frames, lora_variant=temporal_lora_variant,
-            lora_rank=lora_rank, lora_alpha=lora_alpha)
+            ch, temporal_max_len=num_frames, pos_embedding_type=pos_embedding_type,
+            lora_variant=temporal_lora_variant, lora_rank=lora_rank, lora_alpha=lora_alpha)
         self.motion_modules = nn.ModuleList([
             motion(out_channels[2]), motion(out_channels[3]), motion(features),
             motion(features)])
@@ -150,7 +163,8 @@ class DPTDecoder(nn.Module):
 
     def suffix(self, maps, frames: int, train: bool = False):
         """Window half: temporal modules + fusion pyramid + heads; ``train``
-        picks the motion modules' route (models/motion.py)."""
+        picks the motion modules' route (models/motion.py) and keeps the
+        RCUs off the fused kernel."""
         layer_1_rn, layer_2_rn, layer_3, layer_4 = maps
         s = self.scratch
         layer_3 = self.motion_modules[0](layer_3, frames, train)
@@ -158,12 +172,12 @@ class DPTDecoder(nn.Module):
         layer_3_rn = conv_nhwc(s.layer3_rn, layer_3)
         layer_4_rn = conv_nhwc(s.layer4_rn, layer_4)
 
-        path_4 = s.refinenet4(layer_4_rn, None, layer_3_rn.shape[1:3])
+        path_4 = s.refinenet4(layer_4_rn, None, layer_3_rn.shape[1:3], train)
         path_4 = self.motion_modules[2](path_4, frames, train)
-        path_3 = s.refinenet3(path_4, layer_3_rn, layer_2_rn.shape[1:3])
+        path_3 = s.refinenet3(path_4, layer_3_rn, layer_2_rn.shape[1:3], train)
         path_3 = self.motion_modules[3](path_3, frames, train)
-        path_2 = s.refinenet2(path_3, layer_2_rn, layer_1_rn.shape[1:3])
-        path_1 = s.refinenet1(path_2, layer_1_rn, None)
+        path_2 = s.refinenet2(path_3, layer_2_rn, layer_1_rn.shape[1:3], train)
+        path_1 = s.refinenet1(path_2, layer_1_rn, None, train)
 
         out = {}
         if self.conv_head:

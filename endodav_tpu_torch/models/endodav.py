@@ -7,6 +7,9 @@ normalize, ViT taps at the encoder's intermediate layers, temporal DPT
 -> {("disp", s): [B*T, h_s, w_s, 1]}.  Parameter names are the reference
 state-dict keys (``pretrained.*``, ``head.*``).
 
+``pos_embedding_type`` ("ape" or "rope") picks the motion modules'
+temporal position code, as the JAX field of the same name.
+
 ``int8_serving`` (serving only; the engine sets it on the merged vitl
 graph) asks the trunk for its int8 GEMMs; ``ENDODAV_INT8`` overrides it.
 A shallow copy with the flag changed shares every weight with the
@@ -65,7 +68,7 @@ class EndoDAV(nn.Module):
                  residual_block_indexes: Sequence[int] = (), include_cls_token: bool = True,
                  num_frames: int = 32, inv_sigmoid: bool = False, temporal_lora: bool = False,
                  conv_head: bool = True, out_sigmoid: bool = False,
-                 int8_serving: bool = False):
+                 int8_serving: bool = False, pos_embedding_type: str = "ape"):
         super().__init__()
         self.encoder = encoder
         self.lora_type = lora_type
@@ -83,7 +86,7 @@ class EndoDAV(nn.Module):
             out_channels=cfg["out_channels"], num_frames=num_frames, conv_head=conv_head,
             inv_sigmoid=inv_sigmoid, out_sigmoid=out_sigmoid,
             temporal_lora_variant=lora_type if temporal_lora else "none", lora_rank=r,
-            lora_alpha=alpha)
+            lora_alpha=alpha, pos_embedding_type=pos_embedding_type)
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN), persistent=False)
         self.register_buffer("std", torch.tensor(IMAGENET_STD), persistent=False)
 

@@ -1,6 +1,6 @@
 """Temporal attention ("motion") modules.
 
-Port of `endodav_tpu/models/motion.py` (APE): GroupNorm(32, eps 1e-6)
+Port of `endodav_tpu/models/motion.py` (APE and RoPE): GroupNorm(32, eps 1e-6)
 -> proj_in -> temporal transformer blocks -> proj_out, with a residual
 over the stack.  Maps stay channels-last [B*T, H, W, C]; attention runs
 along T on [B*H*W, T, C].  ``ff_norm`` has eps 1e-6.  Parameter names
@@ -16,10 +16,14 @@ trainer carries down (`train/losses.py:main_phase`), as JAX does:
   kernel, whose LayerNorm has eps 1e-5 as the TPU kernel's.
 * ``train=True`` mirrors the JAX train step, which never fuses
   (`motion.py:199-210`) and runs flax's ``nn.LayerNorm`` with its default
-  eps 1e-6 (`motion.py:219-221`) and plain attention along T.
+  eps 1e-6 (`motion.py:219-221`) and attention along T, here the
+  temporal-attention kernel (`kernels/temporal_attention.py`).
 
 The two epsilons differ because the two JAX paths differ; each route
-keeps its own.
+keeps its own.  ``pos_embedding_type="rope"`` adds no pe and rotates the
+channel pairs of q and k instead (`motion.py:92-106, 139-158`); JAX fuses
+APE only (`_use_fused_block`), so a RoPE module takes the unfused route at
+serving too.
 """
 
 from __future__ import annotations
@@ -31,11 +35,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from endodav_tpu_torch.kernels.flash_attention import attention_reference
 from endodav_tpu_torch.kernels.fused_temporal_block import fused_temporal_block
+from endodav_tpu_torch.kernels.temporal_attention import temporal_attention
 from endodav_tpu_torch.models.lora import LoRADense
 
-__all__ = ["TemporalModule", "sinusoidal_time_encoding"]
+__all__ = ["TemporalModule", "sinusoidal_time_encoding", "rope_tables", "POS_EMBEDDINGS"]
+
+POS_EMBEDDINGS = ("ape", "rope")
 
 
 def sinusoidal_time_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -48,15 +54,34 @@ def sinusoidal_time_encoding(max_len: int, d_model: int) -> np.ndarray:
     return pe.astype(np.float32)
 
 
-TRAIN_LN_EPS = 1e-6  # flax nn.LayerNorm default, the JAX train step's norm_{i}
+def rope_tables(dim: int, max_len: int, theta: float = 10000.0):
+    """(cos, sin) tables [max_len, dim/2] (`motion.py:rope_tables`)."""
+    freqs = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64)[: dim // 2] / dim))
+    ang = np.outer(np.arange(max_len, dtype=np.float64), freqs)
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the channel pairs (2i, 2i+1) of x [B*, T, C] by the tables
+    [T, C/2] (`motion.py:_apply_rope`)."""
+    xr = x.reshape(*x.shape[:-1], -1, 2)
+    a, b = xr[..., 0], xr[..., 1]
+    return torch.stack([a * cos - b * sin, a * sin + b * cos], dim=-1).reshape(x.shape)
+
+
+TRAIN_LN_EPS = 1e-6  # flax nn.LayerNorm default, the JAX unfused sub-block's norm_{i}
 
 
 class TemporalAttention(nn.Module):
     """Self-attention along T as one residual sub-block."""
 
-    def __init__(self, dim: int, num_heads: int = 8, temporal_max_len: int = 32):
+    def __init__(self, dim: int, num_heads: int = 8, temporal_max_len: int = 32,
+                 pos_embedding_type: str = "ape"):
         super().__init__()
+        if pos_embedding_type not in POS_EMBEDDINGS:
+            raise ValueError(f"pos_embedding_type {pos_embedding_type!r}; one of {POS_EMBEDDINGS}")
         self.num_heads = num_heads
+        self.pos_embedding_type = pos_embedding_type
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(dim, dim, bias=False)
         self.to_v = nn.Linear(dim, dim, bias=False)
@@ -64,10 +89,15 @@ class TemporalAttention(nn.Module):
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_time_encoding(temporal_max_len, dim)),
             persistent=False)
+        if pos_embedding_type == "rope":
+            cos, sin = rope_tables(dim, temporal_max_len)
+            self.register_buffer("rope_cos", torch.from_numpy(cos), persistent=False)
+            self.register_buffer("rope_sin", torch.from_numpy(sin), persistent=False)
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm, train: bool = False) -> torch.Tensor:
-        """x + Attn(norm(x) + pe) Wo + bo over x [B*, T, C]."""
-        if train:
+        """x + Attn(norm(x) + pe) Wo + bo over x [B*, T, C] (RoPE: no pe, q
+        and k rotated)."""
+        if train or self.pos_embedding_type == "rope":
             return x + self._unfused(x, norm)
         t = x.shape[1]
         jax_layout = lambda lin: lin.weight.t().contiguous()  # noqa: E731  [C_in, C_out]
@@ -78,13 +108,19 @@ class TemporalAttention(nn.Module):
             jax_layout(self.to_v), jax_layout(out), out.bias.contiguous(), self.num_heads)
 
     def _unfused(self, x, norm):
-        """to_out(attn(LN_1e-6(x) + pe)): the JAX train step's sub-block."""
+        """to_out(attn(LN_1e-6(x) + pe)), or with RoPE to_out(attn) of the
+        rotated q, k of LN_1e-6(x): JAX's unfused sub-block."""
         bstar, t, c = x.shape
-        y = F.layer_norm(x, (c,), norm.weight, norm.bias, TRAIN_LN_EPS) + self.pe[:t].to(x.dtype)
+        y = F.layer_norm(x, (c,), norm.weight, norm.bias, TRAIN_LN_EPS)
+        if self.pos_embedding_type == "ape":
+            y = y + self.pe[:t].to(x.dtype)
+        q, k, v = (lin(y) for lin in (self.to_q, self.to_k, self.to_v))
+        if self.pos_embedding_type == "rope":
+            cos, sin = self.rope_cos[:t].to(x.dtype), self.rope_sin[:t].to(x.dtype)
+            q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
         heads = self.num_heads
-        q, k, v = (lin(y).reshape(bstar, t, heads, c // heads)
-                   for lin in (self.to_q, self.to_k, self.to_v))
-        out = attention_reference(q, k, v, (c // heads) ** -0.5).reshape(bstar, t, c)
+        q, k, v = (a.reshape(bstar, t, heads, c // heads) for a in (q, k, v))
+        out = temporal_attention(q, k, v, (c // heads) ** -0.5).reshape(bstar, t, c)
         return self.to_out[0](out)
 
 
@@ -115,12 +151,14 @@ class GEGLUFeedForward(nn.Module):
 class TemporalTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8, num_attention_blocks: int = 2,
                  temporal_max_len: int = 32, lora_variant: str = "none",
-                 lora_rank: int = 4, lora_alpha: float | None = None):
+                 lora_rank: int = 4, lora_alpha: float | None = None,
+                 pos_embedding_type: str = "ape"):
         super().__init__()
         self.attention_blocks = nn.ModuleList(
-            TemporalAttention(dim, num_heads, temporal_max_len)
+            TemporalAttention(dim, num_heads, temporal_max_len, pos_embedding_type)
             for _ in range(num_attention_blocks))
-        # eps 1e-5 is the fused kernel's (serving); training uses TRAIN_LN_EPS
+        # eps 1e-5 is the fused kernel's (APE serving); the unfused route
+        # uses TRAIN_LN_EPS
         self.norms = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5)
                                    for _ in range(num_attention_blocks))
         self.ff = GEGLUFeedForward(dim, lora_variant=lora_variant, lora_rank=lora_rank,
@@ -136,13 +174,14 @@ class TemporalTransformerBlock(nn.Module):
 class TemporalTransformer(nn.Module):
     def __init__(self, c: int, num_heads: int, num_transformer_block: int,
                  num_attention_blocks: int, norm_num_groups: int, temporal_max_len: int,
-                 lora_variant: str, lora_rank: int, lora_alpha: float | None):
+                 lora_variant: str, lora_rank: int, lora_alpha: float | None,
+                 pos_embedding_type: str = "ape"):
         super().__init__()
         self.norm = nn.GroupNorm(norm_num_groups, c, eps=1e-6)
         self.proj_in = nn.Linear(c, c)
         self.transformer_blocks = nn.ModuleList(
             TemporalTransformerBlock(c, num_heads, num_attention_blocks, temporal_max_len,
-                                     lora_variant, lora_rank, lora_alpha)
+                                     lora_variant, lora_rank, lora_alpha, pos_embedding_type)
             for _ in range(num_transformer_block))
         self.proj_out = nn.Linear(c, c)
 
@@ -156,11 +195,12 @@ class TemporalModule(nn.Module):
                  num_transformer_block: int = 1, num_attention_blocks: int = 2,
                  norm_num_groups: int = 32, temporal_max_len: int = 32,
                  lora_variant: str = "none", lora_rank: int = 4,
-                 lora_alpha: float | None = None):
+                 lora_alpha: float | None = None, pos_embedding_type: str = "ape"):
         super().__init__()
         self.temporal_transformer = TemporalTransformer(
             in_channels, num_attention_heads, num_transformer_block, num_attention_blocks,
-            norm_num_groups, temporal_max_len, lora_variant, lora_rank, lora_alpha)
+            norm_num_groups, temporal_max_len, lora_variant, lora_rank, lora_alpha,
+            pos_embedding_type)
 
     def forward(self, x: torch.Tensor, frames: int, train: bool = False) -> torch.Tensor:
         tt = self.temporal_transformer

@@ -288,3 +288,130 @@ def test_int8_dense_product_is_exact():
     torch.testing.assert_close(int8_dense(x, w, b), want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="M > 16"):
         int8_dense(x[:1, :10], w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 24, 64), (1, 10, 24, 64), (1, 6, 16, 64),
+                                     (2, 9, 8, 128), (1, 19, 23, 64), (1, 3, 5, 32)])
+def test_fused_rcu_matches_plain(dtype, b, h, w, c):
+    """Tiles on every border, frames smaller than one 8x16 tile, C=128."""
+    from endodav_tpu_torch.kernels.fused_rcu import fused_rcu, rcu_reference
+
+    dev = _card()
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(b * h * w + c)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(dev).to(dtype)
+    convs = [torch.nn.Conv2d(c, c, 3, padding=1).to(dev) for _ in range(2)]
+    with torch.no_grad():
+        for conv in convs:
+            conv.weight.copy_(torch.from_numpy(
+                (rng.standard_normal(tuple(conv.weight.shape)) * (9 * c) ** -0.5)
+                .astype(np.float32)))
+        wq = [conv.weight.to(dtype).float() for conv in convs]
+        want = rcu_reference(x.float(), wq[0], convs[0].bias, wq[1], convs[1].bias)
+        before = fused_rcu.launches
+        got = fused_rcu(x, *convs)
+    torch.cuda.synchronize()
+    assert fused_rcu.launches == before + 1 and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= TOL[dtype] * max(1.0, want.abs().max())
+
+
+@pytest.mark.cuda
+def test_fused_rcu_gradient_matches_plain():
+    from endodav_tpu_torch.kernels.fused_rcu import fused_rcu, rcu_reference
+
+    dev = _card()
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((1, 9, 20, 64)).astype(np.float32)).to(dev)
+    convs = [torch.nn.Conv2d(64, 64, 3, padding=1).to(dev) for _ in range(2)]
+    xs = x.clone().requires_grad_()
+    out = fused_rcu(xs, *convs)
+    assert out.grad_fn is not None
+    (out ** 2).sum().backward()
+    xr = x.clone().requires_grad_()
+    params = [p.detach().clone().requires_grad_() for conv in convs for p in conv.parameters()]
+    (rcu_reference(xr, *params) ** 2).sum().backward()
+    got = [xs.grad] + [p.grad for conv in convs for p in conv.parameters()]
+    for a, r in zip(got, [xr.grad] + [p.grad for p in params]):
+        assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,t,heads,dh", [(13, 32, 8, 8), (7, 16, 8, 24), (5, 32, 8, 48),
+                                             (3, 32, 8, 128), (2, 64, 4, 16), (1, 5, 2, 3)])
+def test_temporal_attention_matches_plain(dtype, rows, t, heads, dh):
+    from endodav_tpu_torch.kernels.temporal_attention import (temporal_attention,
+                                                              temporal_attention_reference)
+
+    dev = _card()
+    rng = np.random.default_rng(rows * t + dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal((rows, t, heads, dh)).astype(np.float32))
+               .to(dev).to(dtype) for _ in range(3))
+    want = temporal_attention_reference(q.float(), k.float(), v.float(), dh ** -0.5)
+    before = temporal_attention.launches
+    got = temporal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert temporal_attention.launches == before + 1 and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_temporal_attention_gradient_matches_plain():
+    from endodav_tpu_torch.kernels.temporal_attention import (temporal_attention,
+                                                              temporal_attention_reference)
+
+    dev = _card()
+    rng = np.random.default_rng(22)
+    qkv = [torch.from_numpy(rng.standard_normal((11, 16, 8, 24)).astype(np.float32)).to(dev)
+           for _ in range(3)]
+    g = torch.from_numpy(rng.standard_normal((11, 16, 8, 24)).astype(np.float32)).to(dev)
+    got_in = [a.clone().requires_grad_() for a in qkv]
+    temporal_attention(*got_in).backward(g)
+    ref_in = [a.clone().requires_grad_() for a in qkv]
+    temporal_attention_reference(*ref_in, 24 ** -0.5).backward(g)
+    torch.cuda.synchronize()
+    for a, r in zip(got_in, ref_in):
+        assert (a.grad - r.grad).abs().max().item() <= 1e-4 * max(1.0, r.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,zeros,tile,img_grad", [(3, False, 4, False), (2, False, 1, True),
+                                                   (4, True, 1, True), (3, True, 2, False)])
+def test_channel_plane_kernels_match_plain_and_interleaved(monkeypatch, c, zeros, tile,
+                                                           img_grad):
+    """ENDODAV_WARP_CP=1: the plane kernels launch (and not the interleaved
+    ones) and agree with the planes' plain version and the interleaved
+    kernels."""
+    dev = _card()
+    rng = np.random.default_rng(c * 10 + tile + 7)
+    b, h, w = 3, 37, 53
+    img = torch.from_numpy(rng.uniform(0, 1, (b, h, w, c)).astype(np.float32)).to(dev)
+    fx = torch.from_numpy(rng.uniform(-3, w + 2, (b * tile, 11, 13)).astype(np.float32)).to(dev)
+    fy = torch.from_numpy(rng.uniform(-3, h + 2, (b * tile, 11, 13)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((b * tile, 11, 13, c)).astype(np.float32)).to(dev)
+
+    def run(fn, cp):
+        monkeypatch.setenv("ENDODAV_WARP_CP", "1" if cp else "0")
+        i, x, y = (t.clone().requires_grad_() for t in (img, fx, fy))
+        out = fn(i if img_grad else i.detach(), x, y)
+        out.backward(g)
+        return out.detach(), (i.grad if img_grad else None), x.grad, y.grad
+
+    fns = (W.grid_sample_fwd_cp_cuda, W.grid_sample_bwd_coord_cp_cuda,
+           W.grid_sample_bwd_fused_cp_cuda, W.grid_sample_fwd_cuda)
+    counts = [f.launches for f in fns]
+    got = run(lambda i, x, y: W.grid_sample_mm(i, x, y, zeros, img_grad, tile), True)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, counts)] == [1, int(not img_grad), int(img_grad), 0]
+    plain = run(lambda i, x, y: W.grid_sample_planes_reference(W.to_planes(i), x, y, zeros, tile),
+                True)
+    inter = run(lambda i, x, y: W.grid_sample_mm(i, x, y, zeros, img_grad, tile), False)
+    torch.cuda.synchronize()
+    for want in (plain, inter):
+        for k in (0, 2, 3):
+            assert (got[k] - want[k]).abs().max().item() <= WARP_TOL
+        if img_grad:
+            assert _rel(got[1], want[1]) <= ATOMIC_RTOL

@@ -24,6 +24,8 @@ def _submodules():
 def test_port_imports_leave_jax_out():
     mods = _submodules()
     assert "endodav_tpu_torch.eval.engine" in mods and "endodav_tpu_torch.kernels._build" in mods
+    for new in ("eval.streaming", "kernels.fused_rcu", "kernels.temporal_attention"):
+        assert f"endodav_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
