@@ -9,10 +9,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the serving path and of the training step: flash attention
      (f32, bf16, and its gradient), the fused temporal block and its
-     head-grouped kernel (vitl's C=1024) in f32 and bf16, the fused MLP at
-     vits and vitl widths, the fused RCU at the vits head's shapes, the
-     temporal attention at the training step's and a 518x644 window's
-     shapes (and its gradient), the int8 serving GEMM (`int8_dense`); the
+     head-grouped route (vitl's C=1024) in f32 and bf16, the fused MLP at
+     vits and vitl widths (these two on the tensor cores, f32 as 3xTF32:
+     both bounds, the rate reached and the grouped route's two launches),
+     the fused RCU at the vits head's shapes, the temporal attention at
+     the training step's and a 518x644 window's shapes (and its
+     gradient), the int8 serving GEMM (`int8_dense`); the
      grid-sample forward and both backward kernels at the four warp calls
      of the training step, their channel-plane twins at the C > 1 calls
      (also against the interleaved kernels), and the forward splat; with
@@ -117,6 +119,9 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_UPDATE_ATOL = 1e-4, 1e-3, 1e-7
 # outside the tensor cores (TF32 is off) and of bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# f32 products on the tensor cores as 3xTF32 (the fused MLP, the grouped
+# temporal block): three TF32 passes at the 495 TFLOP/s TF32 rate
+TF32X3_FLOPS = 495e12 / 3
 TRAIN_HW, TRAIN_T, SPLIT = (256, 320), 16, "splits/scared_video/train_files.txt"
 # scripts/train_video.sh with the trainer's default --lora_type dvlora and
 # --warm_up_step 2, so that steps 1-2 train the LoRA A/B and steps 3-4 the
@@ -213,11 +218,43 @@ def time_pair(kernel, plain, iters: int = 5) -> tuple[float, float]:
     return t["kernel"], t["plain"]
 
 
-def bound(nbytes: float, flops: float, dtype=torch.float32) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, dtype=torch.float32,
+          tf32x3: bool = False) -> tuple[float, str]:
     """Least ms the card could take: the larger of the bytes over HBM rate
-    and the operations over the peak rate of their type."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    and the operations over the peak rate of their type; with ``tf32x3``,
+    f32 operations at the 3xTF32 rate (3x the operations at the TF32
+    tensor-core peak) instead of the SIMT f32 rate."""
+    rate = TF32X3_FLOPS if tf32x3 and dtype == torch.float32 else PEAK_FLOPS[dtype]
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def tensor_core_bounds(row, nbytes, flops, dtype):
+    """A tensor-core kernel's row: its bound (3xTF32 for f32, bf16 on the
+    tensor cores), the f32 SIMT bound beside it, the design, and the rate
+    reached (TFLOP/s of the function's own operations)."""
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype, tf32x3=True)
+    if dtype == torch.float32:
+        row["bound_simt_ms"] = bound(nbytes, flops, dtype)[0]
+    row["design"] = ("tensor cores, 3xTF32 mma.sync" if dtype == torch.float32
+                     else "tensor cores, bf16 mma.sync")
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+
+
+def device_ms_by_kernel(fn, iters: int = 3) -> dict | None:
+    """Mean device ms a call of each kernel that ``fn`` launches, from
+    torch.profiler (None where the profiler shows no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    found = {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0}
+    return found or None
 
 
 def check_flash(device, shapes=FLASH_SHAPES, dh=64, timing=True):
@@ -337,9 +374,22 @@ def check_temporal(device, shapes=TEMPORAL_SHAPES, t=32, heads=8, timing=True):
                                                                  t_["library"])
                 # x read and the output written once, the weights once; four
                 # C x C products per token and the T x T attention per row
-                row["bound_ms"], row["bound_by"] = bound(
-                    xd.element_size() * (2 * nrows * t * c + 4 * c * c + c) + 4 * (2 * c + t * c),
-                    2.0 * nrows * t * 4 * c * c + 4.0 * nrows * t * t * c, dtype)
+                nbytes = (xd.element_size() * (2 * nrows * t * c + 4 * c * c + c)
+                          + 4 * (2 * c + t * c))
+                flops = 2.0 * nrows * t * 4 * c * c + 4.0 * nrows * t * t * c
+                if c >= GROUPED_MIN_C:
+                    tensor_core_bounds(row, nbytes, flops, dtype)
+                    # the two launches of the grouped route: the q|k|v
+                    # projection and the attention with the out-projection
+                    split = device_ms_by_kernel(lambda: fused_temporal_block(
+                        xd, gamma, beta, pe, wq, wk, wv, wo, bod, heads))
+                    if split:
+                        row["launch_ms"] = {next((n for n in ("qkv_kernel", "out_kernel")
+                                                  if n in k), k[:60]): v
+                                            for k, v in split.items()}
+                else:
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+                    row["design"] = "SIMT register tiles"
             print(f"[fused_temporal_block] {row}")
             require(err <= tol, f"fused_temporal_block {row}: max |err| above {tol}")
             rows.append(row)
@@ -381,9 +431,8 @@ def check_fused_mlp(device, shapes=MLP_SHAPES, timing=True):
                                                                  t_["library"])
                 # x read and the output written once, the weights and biases
                 # once; two products
-                row["bound_ms"], row["bound_by"] = bound(
-                    xd.element_size() * (2 * nrows * c + 2 * c * h) + 4 * (h + c),
-                    4.0 * nrows * c * h, dtype)
+                tensor_core_bounds(row, xd.element_size() * (2 * nrows * c + 2 * c * h)
+                                   + 4 * (h + c), 4.0 * nrows * c * h, dtype)
             print(f"[fused_mlp] {row}")
             require(err <= tol, f"fused_mlp {row}: max |err| above {tol}")
             rows.append(row)

@@ -28,7 +28,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _SOURCES = ("flash_attention.cu", "fused_temporal_block.cu", "fused_mlp.cu", "warp.cu",
             "fused_rcu.cu", "temporal_attention.cu")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "tc_tile.cuh", "tma.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,11 +46,9 @@ _SIGNATURES = {
     "endodav_fused_temporal_block": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                       _vp, _vp, _int, _int, _int, _int, _int, _f, _vp],
                                      _int),
-    "endodav_fused_temporal_block_grouped": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                                              _vp, _vp, _vp, _int, _int, _int, _int, _int, _f,
+    "endodav_fused_temporal_block_grouped": ([_int, *[_vp] * 15, _int, _int, _int, _int, _f,
                                               _vp], _int),
-    "endodav_fused_mlp": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
-                           _int, _vp], _int),
+    "endodav_fused_mlp": ([_int, *[_vp] * 8, _int, _int, _int, _int, _vp], _int),
     "endodav_grid_sample_fwd": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
                                  _int, _vp], _int),
     "endodav_grid_sample_bwd": ([_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,

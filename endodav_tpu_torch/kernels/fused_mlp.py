@@ -5,10 +5,17 @@ Port of `endodav_tpu/kernels/fused_mlp.py`.  ``fused_mlp(x, w1, b1, w2,
 b2)`` returns ``fc2(gelu(x W1 + b1)) + b2`` over x [..., C] with the
 weights in the JAX layout [in, out], the biases in f32, the hidden
 activations rounded to x's dtype between the products and every sum in
-f32.  On a CUDA tensor it launches `csrc/fused_mlp.cu`; on a CPU tensor it
-runs `mlp_reference`, the port of the JAX `mlp_reference` (exact gelu).
-Serving only, as in JAX: the kernel has no backward, and `Mlp` routes here
-only under ``ENDODAV_FUSED_MLP`` on the merged graph without int8.
+f32.  On a CUDA tensor it launches `csrc/fused_mlp.cu` on the tensor cores
+(f32 as 3xTF32, bf16 as it is); on a CPU tensor it runs `mlp_reference`,
+the port of the JAX `mlp_reference` (exact gelu).  Serving only, as in
+JAX: the kernel has no backward, and `Mlp` routes here only under
+``ENDODAV_FUSED_MLP`` on the merged graph without int8.
+
+Weights: contiguous, or the transpose of a contiguous tensor (`Mlp` passes
+``lin.weight.t()``, the parameter's own storage, which is the K-major
+layout the kernel reads).  The kernel's B planes (`tf32x3.kmajor_planes`:
+hi and lo for f32) are made once per weight version and kept in
+``fused_mlp.planes``; for f32 they take twice the weights' memory.
 
 GELU: the TPU kernel evaluates erf by Abramowitz-Stegun 7.1.26 (|error| <=
 1.5e-7), `mlp_reference` exactly, this kernel with CUDA's ``erff`` (at most
@@ -22,12 +29,13 @@ import torch
 import torch.nn.functional as F
 
 from endodav_tpu_torch.kernels import _build
+from endodav_tpu_torch.kernels.tf32x3 import PlaneCache, check_layout, kmajor_planes
 
-__all__ = ["mlp_reference", "fused_mlp", "mlp_tiles"]
+__all__ = ["mlp_reference", "fused_mlp", "mlp_config"]
 
-SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-SMEM_BUDGET = 200 * 1024
-THREAD_TILES = 256  # the first product's 8x4 tiles per hidden tile (one per thread)
+MID_C2 = 384  # csrc/fused_mlp.cu:Mid, a cluster of 2 CTAs a 128-row tile
+WIDE_NC = 256  # csrc/fused_mlp.cu:Wide, output columns a CTA of a cluster
+C_STEP = 64  # C is walked in steps of 64 (bf16, and f32 at wide widths)
 
 
 def mlp_reference(x, w1, b1, w2, b2):
@@ -39,22 +47,24 @@ def mlp_reference(x, w1, b1, w2, b2):
     return y.to(x.dtype)
 
 
-def _smem_bytes(c: int, c2: int, bm: int, ht: int) -> int:
-    """Mirror of csrc/fused_mlp.cu's shared-memory size."""
-    return (bm * c + bm * ht + bm * c2) * 4
-
-
-def mlp_tiles(c: int, hdim: int, c2: int) -> tuple[int, int]:
-    """(rows a block, hidden columns a tile): the most rows of 32, 16, 8
-    whose footprint stays in budget, and the hidden tile that gives every
-    thread one 8x4 tile of the first product (halved until it divides H)."""
-    for bm in (32, 16, 8):
-        ht = min(hdim, THREAD_TILES * 8 * 4 // bm)
-        while ht > 4 and hdim % ht:
-            ht //= 2
-        if _smem_bytes(c, c2, bm, ht) <= SMEM_BUDGET:
-            return bm, ht
-    return bm, ht
+def mlp_config(c: int, hdim: int, c2: int) -> tuple[int, int]:
+    """(cluster size, rows a tile) of csrc/fused_mlp.cu for widths C -> H ->
+    C2: C2 = 384 on a cluster of 2 CTAs (H a multiple of 128); any other
+    C2 up to 1024 that is a multiple of 8 on a cluster of cl = ceil(C2/256)
+    CTAs (H a multiple of 32*cl); 128 rows a tile; C a multiple of 64.
+    Raises for widths the kernel does not take."""
+    if c2 == MID_C2:
+        cl, rows, hstep = 2, 128, 128
+    else:
+        cl, rows = -(-c2 // WIDE_NC), 128
+        hstep = 32 * cl
+        if c2 % 8 or not 1 <= cl <= 4:
+            raise ValueError(f"fused_mlp: output width {c2} must be a multiple of 8 and at "
+                             f"most {4 * WIDE_NC}")
+    if c % C_STEP or c == 0 or hdim % hstep or hdim == 0:
+        raise ValueError(f"fused_mlp: widths {c} -> {hdim} -> {c2} need C a multiple of "
+                         f"{C_STEP} and H a multiple of {hstep}")
+    return cl, rows
 
 
 def fused_mlp(x, w1, b1, w2, b2):
@@ -77,31 +87,32 @@ def _launch(x, w1, b1, w2, b2):
         if name != "x" and (tuple(a.shape), a.dtype) != expect[name]:
             raise ValueError(f"fused_mlp: {name} is {tuple(a.shape)} {a.dtype}, expected "
                              f"{expect[name][0]} {expect[name][1]}")
-        if a.device != x.device or not a.is_contiguous():
-            raise ValueError(f"fused_mlp: {name} must be contiguous on {x.device}")
-    if c % 4 or c2 % 4 or hdim % 4:
-        raise ValueError(f"fused_mlp: widths {c}, {hdim}, {c2} must be multiples of 4")
-    bm, ht = mlp_tiles(c, hdim, c2)
-    if hdim % ht or ht % 4 or _smem_bytes(c, c2, bm, ht) > SMEM_LIMIT:
-        raise ValueError(f"fused_mlp: widths {c} -> {hdim} -> {c2} need "
-                         f"{_smem_bytes(c, c2, bm, ht)} bytes of shared memory a block "
-                         f"(limit {SMEM_LIMIT}) or have no hidden tile")
+        if a.device != x.device:
+            raise ValueError(f"fused_mlp: {name} must be on {x.device}")
+        if name in ("w1", "w2"):
+            check_layout(a, f"fused_mlp: {name}")
+        elif not a.is_contiguous():
+            raise ValueError(f"fused_mlp: {name} must be contiguous")
+    mlp_config(c, hdim, c2)
     rows = x.numel() // c
     if rows == 0:
         return torch.empty((*lead, c2), dtype=x.dtype, device=x.device)
     lib = _build.library()
-    for name, w in (("w1", w1), ("w2", w2)):
-        if w.data_ptr() % 16:
-            raise ValueError(f"fused_mlp: {name} must start 16-byte aligned "
-                             "(the kernel reads weight rows as vectors)")
+    if x.data_ptr() % 16:
+        raise ValueError("fused_mlp: x must start 16-byte aligned (the kernel copies 16-byte "
+                         "vectors)")
+    (w1h, w1l), (w2h, w2l) = (kmajor_planes(fused_mlp.planes, w) for w in (w1, w2))
+    if any(p.data_ptr() % 16 for p in (w1h, w1l, w2h, w2l)):
+        raise ValueError("fused_mlp: the weights must start 16-byte aligned")
     out = torch.empty((*lead, c2), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.endodav_fused_mlp(code, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), rows, c, hdim,
-                                    c2, bm, ht, _build.stream_of(x))
+        err = lib.endodav_fused_mlp(code, x.data_ptr(), w1h.data_ptr(), w1l.data_ptr(),
+                                    b1.data_ptr(), w2h.data_ptr(), w2l.data_ptr(), b2.data_ptr(),
+                                    out.data_ptr(), rows, c, hdim, c2, _build.stream_of(x))
     _build.check(err, "fused_mlp")
     fused_mlp.launches += 1
     return out
 
 
 fused_mlp.launches = 0
+fused_mlp.planes = PlaneCache()

@@ -1,21 +1,27 @@
-"""Fused temporal attention sub-block: the CUDA kernel, its plain version
-and the wrapper.
+"""Fused temporal attention sub-block: the CUDA kernels, their plain
+versions and the wrapper.
 
 Port of `endodav_tpu/kernels/fused_temporal_block.py` (the Pallas
 `_kernel` and, for C >= 512, `_grouped_kernel`).  `fused_temporal_block(x, ...)` returns
 ``x + Attn(LN(x) + pe) Wo + bo`` over x [B*, T, C] with LayerNorm eps
 1e-5, per-head softmax attention along T and the weights in the JAX
-layout [C_in, C_out].  On a CUDA tensor it launches one of the two
-kernels of `csrc/fused_temporal_block.cu`: C < 512 the block kernel, C >=
-512 the head-grouped kernel (as `fused_temporal_block.py:252` routes), each
-with its own launch count (`fused_temporal_block.launches`,
-`launch_grouped.launches`).  On a CPU tensor it runs the plain versions:
+layout [C_in, C_out].  On a CUDA tensor it runs `csrc/fused_temporal_block.cu`:
+C < 512 the block kernel, C >= 512 the head-grouped route (as
+`fused_temporal_block.py:252` routes), two tensor-core launches (the
+q|k|v projection, then the attention with the out-projection; f32 as
+3xTF32), each route with its own launch count (`fused_temporal_block.launches`,
+`launch_grouped.launches`: one a call).  On a CPU tensor it runs the plain versions:
 `reference_block` (the port of the JAX `reference_block`) below 512
 channels, `grouped_reference_block` (the group partial sums of
-`_grouped_kernel`, in its order) from 512.  Shapes neither kernel takes
+`_grouped_kernel`, in its order) from 512.  Shapes neither route takes
 raise; nothing falls back.
+Weights: contiguous, or the transpose of a contiguous tensor (the motion
+modules pass ``lin.weight.t()``).  What each kernel reads is made from
+them once per weight version and kept in ``fused_temporal_block.planes``:
+the JAX-layout copy for the block kernel, the K-major hi and lo planes
+for the grouped route (`tf32x3.kmajor_planes`).
 On the card the kernels sit in `_FusedTemporalBlock`, whose backward
-recomputes `reference_block` under autograd, as JAX's `_bwd`
+recomputes the plain version under autograd, as JAX's `_bwd`
 (fused_temporal_block.py:262-268) does.  The training step does not run
 this block (JAX fuses it only at inference); the gradient keeps the
 wrapper from ever handing back a result cut off from autograd.
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from endodav_tpu_torch.kernels import _build
+from endodav_tpu_torch.kernels.tf32x3 import PlaneCache, check_layout, jax_layout, kmajor_planes
 
 __all__ = ["reference_block", "grouped_reference_block", "head_groups", "fused_temporal_block",
            "rows_per_block", "launch_grouped", "GROUPED_MIN_C"]
@@ -96,12 +103,6 @@ def _smem_bytes(t: int, c: int, rpb: int) -> int:
     return (mpad * c + mpad * (3 * c + 1) + 8 * 32) * 4
 
 
-def _grouped_smem_bytes(t: int, c: int, groups: int) -> int:
-    """Mirror of csrc/fused_temporal_block.cu:grouped_smem_bytes."""
-    mpad = -(-t // 8) * 8
-    return (mpad * c + mpad * (3 * (c // groups) + 4) + 8 * 32) * 4
-
-
 def rows_per_block(t: int, c: int) -> int:
     """Rows of [T, C] per block: the most of 4, 2 whose footprint leaves
     room for two blocks per SM (more weight reuse per block), else 1."""
@@ -162,8 +163,12 @@ def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
         if name != "x" and (tuple(a.shape), a.dtype) != expect[name]:
             raise ValueError(f"fused_temporal_block: {name} is {tuple(a.shape)} {a.dtype}, "
                              f"expected {expect[name][0]} {expect[name][1]}")
-        if a.device != x.device or not a.is_contiguous():
-            raise ValueError(f"fused_temporal_block: {name} must be contiguous on {x.device}")
+        if a.device != x.device:
+            raise ValueError(f"fused_temporal_block: {name} must be on {x.device}")
+        if name in ("wq", "wk", "wv", "wo"):
+            check_layout(a, f"fused_temporal_block: {name}")
+        elif not a.is_contiguous():
+            raise ValueError(f"fused_temporal_block: {name} must be contiguous")
     if c >= GROUPED_MIN_C:
         return launch_grouped(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads)
     rpb = rows_per_block(t, c)
@@ -172,7 +177,8 @@ def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
         raise ValueError(f"fused_temporal_block: C={c}, T={t} needs {smem} bytes of shared "
                          f"memory per block, over the {SMEM_LIMIT} a Hopper block has")
     lib = _build.library()
-    _check_aligned(wq, wk, wv, wo)
+    wq, wk, wv, wo = (jax_layout(fused_temporal_block.planes, w) for w in (wq, wk, wv, wo))
+    _check_aligned(x, wq, wk, wv, wo)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.endodav_fused_temporal_block(
@@ -185,39 +191,41 @@ def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
     return out
 
 
-def _check_aligned(*weights):
-    for w in weights:
-        if w.data_ptr() % 16:
-            raise ValueError("fused_temporal_block: the weights must start 16-byte aligned "
-                             "(the kernel reads weight rows as vectors)")
+def _check_aligned(*tensors):
+    for a in tensors:
+        if a.data_ptr() % 16:
+            raise ValueError("fused_temporal_block: x and the weights must start 16-byte "
+                             "aligned (the kernels read them as vectors)")
 
 
 def launch_grouped(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
-    """Launch the head-grouped kernel on CUDA tensors already checked by
-    `_launch`; returns a new [B*, T, C]."""
+    """Run the head-grouped route on CUDA tensors already checked by
+    `_launch`: the q|k|v projection into an f32 scratch [B*T, 3C], then the
+    attention and out-projection; returns a new [B*, T, C]."""
     bstar, t, c = x.shape
-    groups = head_groups(c, heads)
-    cg = c // groups
-    smem = _grouped_smem_bytes(t, c, groups)
-    if cg % 4 or smem > SMEM_LIMIT:
-        raise ValueError(f"fused_temporal_block: C={c}, T={t} in {groups} head groups needs "
-                         f"{smem} bytes of shared memory per block (limit {SMEM_LIMIT})")
+    dh = c // heads
+    if c % 256 or c > 1024 or dh % 32 or dh > 128:
+        raise ValueError(f"fused_temporal_block: C={c} with {heads} heads: the grouped route "
+                         f"takes C a multiple of 256 up to 1024 and a head width (here {dh}) "
+                         f"that is a multiple of 32 and at most 128")
     code = _build.dtype_code(x, "fused_temporal_block")
     lib = _build.library()
-    _check_aligned(wq, wk, wv, wo)
+    planes = [kmajor_planes(fused_temporal_block.planes, w) for w in (wq, wk, wv, wo)]
+    _check_aligned(x, *(p for pair in planes for p in pair))
     out = torch.empty_like(x)
-    # f32 sums of the groups' out-projection partials, one row per block
-    acc = torch.empty((bstar, t, c), dtype=torch.float32, device=x.device)
+    # q|k|v of every token in f32, as JAX keeps them
+    qkv = torch.empty((bstar * t, 3 * c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.endodav_fused_temporal_block_grouped(
             code, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), pe.data_ptr(),
-            wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-            out.data_ptr(), acc.data_ptr(), bstar, t, c, heads, groups,
-            float((c // heads) ** -0.5), _build.stream_of(x))
+            *(hi.data_ptr() for hi, _ in planes), *(lo.data_ptr() for _, lo in planes),
+            bo.data_ptr(), out.data_ptr(), qkv.data_ptr(), bstar, t, c, heads,
+            float(dh ** -0.5), _build.stream_of(x))
     _build.check(err, "fused_temporal_block (grouped)")
     launch_grouped.launches += 1
     return out
 
 
 fused_temporal_block.launches = 0
+fused_temporal_block.planes = PlaneCache()
 launch_grouped.launches = 0

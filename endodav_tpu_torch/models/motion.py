@@ -100,7 +100,7 @@ class TemporalAttention(nn.Module):
         if train or self.pos_embedding_type == "rope":
             return x + self._unfused(x, norm)
         t = x.shape[1]
-        jax_layout = lambda lin: lin.weight.t().contiguous()  # noqa: E731  [C_in, C_out]
+        jax_layout = lambda lin: lin.weight.t()  # noqa: E731  [C_in, C_out], a view
         out = self.to_out[0]
         return fused_temporal_block(
             x.contiguous(), norm.weight.float().contiguous(), norm.bias.float().contiguous(),

@@ -53,7 +53,7 @@ class Mlp(nn.Module):
 
     def forward(self, x, quant_int8: bool = False):
         if env_on("ENDODAV_FUSED_MLP") and self.fc1.variant == "none" and not quant_int8:
-            w1, w2 = (lin.weight.t().contiguous() for lin in (self.fc1, self.fc2))
+            w1, w2 = (lin.weight.t() for lin in (self.fc1, self.fc2))  # JAX layout, views
             return fused_mlp(x.contiguous(), w1, self.fc1.bias.float(), w2,
                              self.fc2.bias.float())
         return self.fc2(F.gelu(self.fc1(x, quant_int8)), quant_int8)

@@ -270,6 +270,68 @@ def test_fused_mlp_matches_plain(dtype, rows, c, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 63, 437, 1702])
+def test_grouped_block_tensor_cores_at_row_counts(dtype, rows):
+    """vitl's motion modules (C=1024, T=32, 8 heads of 128) on the two
+    tensor-core launches, at row counts that no 128-token tile divides and
+    at a 518x644 window's, against the grouped plain version at TOL; the
+    weights as the motion modules pass them (`lin.weight.t()` views) give
+    the same bits as contiguous JAX-layout copies."""
+    from endodav_tpu_torch.kernels.fused_temporal_block import (grouped_reference_block,
+                                                                 launch_grouped)
+
+    dev = _card()
+    t, c = 32, 1024
+    rng = np.random.default_rng(rows)
+    f = lambda *s, sd=0.2: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sd).astype(np.float32)).to(dev)
+    x = f(rows, t, c, sd=0.5).to(dtype)
+    gamma, beta, pe = 1.0 + f(c, sd=0.1), f(c, sd=0.1), f(t, c)
+    torch_layout = [f(c, c, sd=c ** -0.5).to(dtype) for _ in range(4)]  # [C_out, C_in]
+    ws = [w.t() for w in torch_layout]
+    bo = f(c, sd=0.1).to(dtype)
+    want = grouped_reference_block(x.float(), gamma, beta, pe, *(w.float() for w in ws),
+                                   bo.float(), 8)
+    before = launch_grouped.launches
+    got = fused_temporal_block(x, gamma, beta, pe, *ws, bo, 8)
+    copies = fused_temporal_block(x, gamma, beta, pe, *(w.contiguous() for w in ws), bo, 8)
+    torch.cuda.synchronize()
+    assert launch_grouped.launches == before + 2 and got.dtype == dtype
+    assert torch.equal(got, copies)
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 127, 54496])
+@pytest.mark.parametrize("c,h", [(384, 1536), (1024, 4096)])
+def test_fused_mlp_tensor_cores_at_row_counts(dtype, rows, c, h):
+    """vits widths (C2=384: one CTA) and vitl widths (C2=1024: a cluster of
+    4 CTAs) at row counts that no row tile divides and at a 32-frame
+    518x644 encode batch, weights as `Mlp` passes them (`lin.weight.t()`):
+    the plain version at TOL of max(1, the largest entry), the planes made
+    once (a second call hits the cache and gives the same bits)."""
+    from endodav_tpu_torch.kernels.fused_mlp import fused_mlp, mlp_reference
+
+    dev = _card()
+    rng = np.random.default_rng(rows + c)
+    f = lambda *s, sd=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sd).astype(np.float32)).to(dev)
+    x = f(rows, c).to(dtype)
+    fc1, fc2 = f(h, c, sd=c ** -0.5).to(dtype), f(c, h, sd=h ** -0.5).to(dtype)
+    b1, b2 = f(h, sd=0.1), f(c, sd=0.1)
+    want = mlp_reference(x, fc1.t(), b1, fc2.t(), b2).float()
+    before, misses = fused_mlp.launches, fused_mlp.planes.misses
+    got = fused_mlp(x, fc1.t(), b1, fc2.t(), b2)
+    again = fused_mlp(x, fc1.t(), b1, fc2.t(), b2)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 2 and got.dtype == dtype and torch.equal(got, again)
+    assert fused_mlp.planes.misses == misses + (2 if dtype == torch.float32 else 0)
+    assert (got.float() - want).abs().max().item() <= TOL[dtype] * max(1.0, want.abs().max())
+
+
+@pytest.mark.cuda
 def test_int8_dense_product_is_exact():
     """torch._int_mm's int32 product equals the plain int64 one, and
     `int8_dense` refuses shapes it cannot take."""
