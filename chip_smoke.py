@@ -5,20 +5,31 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the CUDA kernels from `endodav_tpu_torch/csrc/` with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
+  2. build the CUDA kernels from `endodav_tpu_torch/csrc/` with nvcc, and
+     beside them the tile's error check (`endodav_tpu_torch/bench/`);
+  3. the f32 error of the 3xTF32 tensor-core tile (`csrc/tc_tile.cuh`)
+     against a float64 product as K grows, held to half the f32 tolerance;
+     each kernel against its plain PyTorch version on the card, at the
      shapes of the serving path and of the training step: flash attention
-     (f32, bf16, and its gradient), the fused temporal block and its
-     head-grouped route (vitl's C=1024) in f32 and bf16, the fused MLP at
-     vits and vitl widths (these two on the tensor cores, f32 as 3xTF32:
-     both bounds, the rate reached and the grouped route's two launches),
+     (f32, bf16, and its gradient), the fused temporal block at every
+     motion-module width (vits C=64, 192, 384; vitl C=256 and 1024) in f32
+     and bf16, the fused MLP at vits and vitl widths (these two on the
+     tensor cores, f32 as 3xTF32: both bounds, the rate reached and the
+     temporal block's two launches),
      the fused RCU at the vits head's shapes, the temporal attention at
-     the training step's and a 518x644 window's shapes (and its
-     gradient), the int8 serving GEMM (`int8_dense`); the
-     grid-sample forward and both backward kernels at the four warp calls
-     of the training step, their channel-plane twins at the C > 1 calls
+     the training step's and a 518x644 window's shapes, vitl's head
+     widths 32 and 128 among them (and its gradient), the int8 serving
+     GEMM (`int8_dense`); the grid-sample forward and both backward
+     kernels at the four warp calls of the training step, their
+     channel-plane twins at the C > 1 calls
      (also against the interleaved kernels), and the forward splat; with
-     the kernel's, the plain version's and one PyTorch call's times;
+     the kernel's, the plain version's and one PyTorch call's times.  The
+     plain versions and the PyTorch calls of these phases run in IEEE f32
+     (TF32 off) inside a local context (`ieee_f32`); the later phases run
+     under the precision policy that the entry points set themselves
+     (`endodav_tpu_torch/utils/precision.py`): PyTorch's default switches
+     (cuDNN TF32 on) are put back before each entry point is called, and
+     the policy it left is checked after;
   4. the full-width vits EndoDAV (random weights from a seed) on one
      8-frame 224x280 clip, as built and with ENDODAV_FUSED_RCU=1, a vits
      RoPE EndoDAV on the same clip, and the full-width merged vitl on one
@@ -60,8 +71,10 @@ TRACE_DIR.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
+import functools
 import json
 import os
 import statistics
@@ -69,6 +82,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -79,13 +93,13 @@ SEED = 0
 # the rounded intermediates (y and the attention output) carry 8 bits of
 # mantissa, compared with the plain version in f32 on the same inputs.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-MODEL_TOL = 2e-4  # whole model, card (kernels, TF32 off) vs CPU (plain versions)
+MODEL_TOL = 2e-4  # whole model, card (kernels, the entry points' f32 policy) vs CPU (plain)
 # flash attention (B, N): 224x280 window chunks (2 x 32 frames); 518x644
 # window chunks and dedup encode batches of 32 frames at vits (H=6) and
 # vitl (H=16)
 FLASH_SHAPES = [(64, 321, 6), (64, 1703, 6), (32, 1703, 16)]
 # temporal block (C, rows) of one 518x644 window: vits's four motion
-# modules; vitl's C=1024 ones (head-grouped kernel) and its C=256 ones
+# modules; vitl's C=1024 ones and its C=256 ones
 TEMPORAL_SHAPES = [(192, 1702), (384, 437), (64, 6808), (1024, 1702), (1024, 437), (256, 1702),
                    (256, 6808)]
 # fused MLP (C, H, rows): a dedup encode batch of 32 518x644 frames
@@ -97,9 +111,15 @@ RCU_SHAPES = [(32, 19, 23), (32, 37, 46), (32, 74, 92), (32, 148, 184), (32, 64,
 # temporal attention (rows, T, Dh) over 8 heads: the training step's motion
 # modules (256x320 frames, ViT input 224x280, T=16: C=192, 384, 64 at
 # 16x20, 8x10 and 16x20, 32x40 pixels) and a 518x644 serving window's
-# (T=32, 37x46, 19x23, 74x92 pixels)
+# (T=32, 37x46, 19x23, 74x92 pixels), and vitl's RoPE modules' head widths
+# (C=256 at 37x46, C=1024 at 19x23)
 TATTN_SHAPES = [(320, 16, 24), (80, 16, 48), (320, 16, 8), (1280, 16, 8), (1702, 32, 24),
-                (437, 32, 48), (6808, 32, 8)]
+                (437, 32, 48), (6808, 32, 8), (1702, 32, 32), (437, 32, 128)]
+# the tile's error against K: the contraction widths of the kernels' f32
+# products (the temporal block's C = 64 .. 1024, the MLP's fc1 at 384 and
+# 1024 and fc2 at 1536 and 4096), on TILE_ROWS x TILE_COLS outputs
+TILE_KS = [64, 192, 384, 1024, 1536, 4096]
+TILE_ROWS, TILE_COLS = 4096, 256
 # the serving configurations of the main path: the 518x644 headline, and
 # vitl at it as the CLI serves it (dedup in taps mode, int8 by default)
 HEADLINE = ["--depth_image_shape", "518", "644", "--merge_lora", "--disable_residual_block"]
@@ -119,8 +139,8 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_UPDATE_ATOL = 1e-4, 1e-3, 1e-7
 # outside the tensor cores (TF32 is off) and of bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# f32 products on the tensor cores as 3xTF32 (the fused MLP, the grouped
-# temporal block): three TF32 passes at the 495 TFLOP/s TF32 rate
+# f32 products on the tensor cores as 3xTF32 (the fused MLP, the temporal
+# block): three TF32 passes at the 495 TFLOP/s TF32 rate
 TF32X3_FLOPS = 495e12 / 3
 TRAIN_HW, TRAIN_T, SPLIT = (256, 320), 16, "splits/scared_video/train_files.txt"
 # scripts/train_video.sh with the trainer's default --lora_type dvlora and
@@ -181,6 +201,37 @@ def _env(env):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def ieee_f32():
+    """PyTorch's f32 convolutions (cuDNN) and products in IEEE f32, TF32
+    off, for the block: the kernel phases' plain versions and library
+    yardsticks are defined so; the switches are restored after."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                        benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=torch.backends.cudnn.deterministic,
+                                        allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def own_policy(where: str, entry_point, *args, **kwargs):
+    """Call an entry point that sets the f32 policy itself, from PyTorch's
+    default switches (cuDNN convolutions in TF32, products in IEEE f32),
+    and require that it left TF32 off; returns what it returned.  The
+    switches are put back first so that an earlier phase's policy cannot
+    stand in for this entry point's."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = entry_point(*args, **kwargs)
+    require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+            f"{where}: TF32 is on after the entry point set its f32 policy")
+    return out
 
 
 def card_line() -> str:
@@ -333,18 +384,20 @@ def unfused_block(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
 
 
 def check_temporal(device, shapes=TEMPORAL_SHAPES, t=32, heads=8, timing=True):
-    """The temporal block's kernels (C < 512 the block kernel, C >= 512 the
-    head-grouped kernel) against the plain versions, in f32 and bf16."""
+    """The temporal block's two tensor-core launches at every motion-module
+    width against their plain version, in f32 and bf16: the kernels sum
+    the heads in order in one f32 accumulator and add x and bo before
+    rounding, `grouped_reference_block`'s order (one head group below 512
+    channels)."""
     from endodav_tpu_torch.kernels.fused_temporal_block import (GROUPED_MIN_C,
                                                                  fused_temporal_block,
                                                                  grouped_reference_block,
-                                                                 reference_block)
+                                                                 tile_config)
     from endodav_tpu_torch.models.motion import sinusoidal_time_encoding
 
     rows = []
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     for c, nrows in shapes:
-        plain = grouped_reference_block if c >= GROUPED_MIN_C else reference_block
         f = lambda *s, sd=1.0: torch.randn(s, generator=g, device=device) * sd  # noqa: E731
         # |out| stays below 4, where bf16 output rounding is at most 2^-7
         x = f(nrows, t, c, sd=0.5)
@@ -356,16 +409,21 @@ def check_temporal(device, shapes=TEMPORAL_SHAPES, t=32, heads=8, timing=True):
             args = [a.to(dtype) for a in (x, *ws, bo)]
             xd, wq, wk, wv, wo, bod = args
             ref_args = [a.float() for a in args]
-            want = plain(ref_args[0], gamma, beta, pe, *ref_args[1:5], ref_args[5], heads)
+            want = grouped_reference_block(ref_args[0], gamma, beta, pe, *ref_args[1:5],
+                                           ref_args[5], heads)
             got = fused_temporal_block(xd, gamma, beta, pe, wq, wk, wv, wo, bod, heads).float()
             torch.cuda.synchronize(device)
             err = (got - want).abs().max().item()
             tol = TOL[dtype]
+            bn, hs = tile_config(c, heads, dtype)
+            # rows 2 (C < 512) and 3 (C >= 512) of the TPU kernels' table
             row = dict(shape=f"rows={nrows} T={t} C={c}", dtype=str(dtype)[6:], err=err,
-                       kernel="grouped" if c >= GROUPED_MIN_C else "block")
+                       margin=err / tol, kernel="grouped" if c >= GROUPED_MIN_C else "block",
+                       tiles=f"bn={bn} hs={hs}")
             if timing:
                 t_ = time_calls({
-                    "plain": lambda: plain(xd, gamma, beta, pe, wq, wk, wv, wo, bod, heads),
+                    "plain": lambda: grouped_reference_block(xd, gamma, beta, pe, wq, wk, wv, wo,
+                                                             bod, heads),
                     "kernel": lambda: fused_temporal_block(xd, gamma, beta, pe, wq, wk, wv, wo,
                                                            bod, heads),
                     "library": lambda: unfused_block(xd, gamma, beta, pe, wq, wk, wv, wo, bod,
@@ -377,21 +435,44 @@ def check_temporal(device, shapes=TEMPORAL_SHAPES, t=32, heads=8, timing=True):
                 nbytes = (xd.element_size() * (2 * nrows * t * c + 4 * c * c + c)
                           + 4 * (2 * c + t * c))
                 flops = 2.0 * nrows * t * 4 * c * c + 4.0 * nrows * t * t * c
-                if c >= GROUPED_MIN_C:
-                    tensor_core_bounds(row, nbytes, flops, dtype)
-                    # the two launches of the grouped route: the q|k|v
-                    # projection and the attention with the out-projection
-                    split = device_ms_by_kernel(lambda: fused_temporal_block(
-                        xd, gamma, beta, pe, wq, wk, wv, wo, bod, heads))
-                    if split:
-                        row["launch_ms"] = {next((n for n in ("qkv_kernel", "out_kernel")
-                                                  if n in k), k[:60]): v
-                                            for k, v in split.items()}
-                else:
-                    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
-                    row["design"] = "SIMT register tiles"
+                tensor_core_bounds(row, nbytes, flops, dtype)
+                # the two launches: the q|k|v projection, and the attention
+                # with the out-projection
+                split = device_ms_by_kernel(lambda: fused_temporal_block(
+                    xd, gamma, beta, pe, wq, wk, wv, wo, bod, heads))
+                if split:
+                    row["launch_ms"] = {next((n for n in ("qkv_kernel", "out_kernel")
+                                              if n in k), k[:60]): v
+                                        for k, v in split.items()}
             print(f"[fused_temporal_block] {row}")
             require(err <= tol, f"fused_temporal_block {row}: max |err| above {tol}")
+            rows.append(row)
+    return rows
+
+
+def check_tile_error(device, ks=TILE_KS, m=TILE_ROWS, n=TILE_COLS):
+    """The f32 error of the 3xTF32 tile in the kernels' accumulation order
+    (`bench/tile_error.py:tile_matmul`) against a float64 product of the
+    same f32 operands, as K grows, beside one f32 product's: a ~ N(0, 1)
+    and b ~ N(0, 1/K) as the kernels' operands, and their absolute values,
+    where every cut toward zero has one sign.  The error is max |err| /
+    max(1, max |ref|) and must stay within half the f32 tolerance."""
+    from endodav_tpu_torch.bench.tile_error import tile_matmul
+
+    g = torch.Generator(device=device).manual_seed(SEED + 10)
+    rows = []
+    for k in ks:
+        a0 = torch.randn((m, k), generator=g, device=device)
+        b0 = torch.randn((k, n), generator=g, device=device) * k ** -0.5
+        for dist, (a, b) in (("signed", (a0, b0)), ("positive", (a0.abs(), b0.abs()))):
+            ref = a.double() @ b.double()
+            scale = max(1.0, ref.abs().max().item())
+            row = dict(k=k, dist=dist, rows=m, cols=n)
+            row["tile"] = (tile_matmul(a, b).double() - ref).abs().max().item() / scale
+            row["f32_product"] = (a @ b - ref).abs().max().item() / scale
+            print(f"[tile error] {row}")
+            require(row["tile"] <= TOL[torch.float32] / 2,
+                    f"tile: error {row['tile']} above half the f32 tolerance")
             rows.append(row)
     return rows
 
@@ -419,7 +500,8 @@ def check_fused_mlp(device, shapes=MLP_SHAPES, timing=True):
             torch.cuda.synchronize(device)
             err = (got - want).abs().max().item()
             tol = TOL[dtype] * max(1.0, want.abs().max().item())
-            row = dict(shape=f"rows={nrows} {c}->{h}->{c}", dtype=str(dtype)[6:], err=err)
+            row = dict(shape=f"rows={nrows} {c}->{h}->{c}", dtype=str(dtype)[6:], err=err,
+                       margin=err / tol)
             if timing:
                 w1t, w2t = w1d.t().contiguous(), w2d.t().contiguous()
                 b1d, b2d = b1.to(dtype), b2.to(dtype)
@@ -762,6 +844,14 @@ def check_temporal_attention(device, shapes=TATTN_SHAPES, heads=8, timing=True):
                 row["bound_ms"], row["bound_by"] = bound(
                     q.element_size() * 4 * nrows * t * heads * dh,
                     4.0 * nrows * heads * t * t * dh, dtype)
+                # the device's own time of the kernel and of SDPA's kernels
+                # (torch.profiler), apart from the host's time a call, which
+                # bounds back-to-back calls at the small training shapes
+                for key, fn in (("device_ms", lambda: temporal_attention(q, k, v)),
+                                ("library_device_ms",
+                                 lambda: F.scaled_dot_product_attention(qh, kh, vh))):
+                    split = device_ms_by_kernel(fn)
+                    row[key] = sum(split.values()) if split else None
             print(f"[temporal_attention] {row}")
             require(err <= TOL[dtype], f"temporal_attention {row}: max |err| above {TOL[dtype]}")
             rows.append(row)
@@ -886,25 +976,20 @@ def check_whole_model(device, args=(), image_shape=(224, 280), frames=8, env=Non
                       pos_embedding_type="ape", counter=None, expect_launches=None):
     """A full-width EndoDAV on the card (kernels; int8 off, as
     build_depth_model leaves it) vs the CPU (plain versions), with ``env``
-    set for both forwards; ``pos_embedding_type="rope"`` builds the model
-    as the engine does but with RoPE motion modules.  ``counter``, a
-    kernel wrapper, must launch ``expect_launches`` times in the card's
+    set for both forwards, under the f32 policy that build_depth_model
+    sets; ``pos_embedding_type="rope"`` builds the model through
+    build_depth_model with RoPE motion modules.  ``counter``, a kernel
+    wrapper, must launch ``expect_launches`` times in the card's
     forward."""
     from endodav_tpu_torch.eval import engine
 
     opt = eval_options(["--no_cuda", "--depth_image_shape", *map(str, image_shape), *args])
-    with _env(env or {}):
-        if pos_embedding_type == "ape":
-            cpu_model = engine.build_depth_model(opt, torch.device("cpu"))
-        else:
-            from endodav_tpu_torch.models.endodav import EndoDAV
-
-            cpu_model = engine.init_random_(EndoDAV(
-                encoder=opt.encoder, r=opt.lora_rank, lora_type=opt.lora_type,
-                image_shape=image_shape,
-                residual_block_indexes=[] if opt.disable_residual_block
-                else opt.residual_block_indexes,
-                pos_embedding_type=pos_embedding_type), opt.seed).eval()
+    with _env(env or {}), contextlib.ExitStack() as stack:
+        if pos_embedding_type != "ape":
+            stack.enter_context(mock.patch.object(engine, "EndoDAV", functools.partial(
+                engine.EndoDAV, pos_embedding_type=pos_embedding_type)))
+        cpu_model = own_policy(f"build_depth_model, {pos_embedding_type}",
+                               engine.build_depth_model, opt, torch.device("cpu"))
         gpu_model = copy.deepcopy(cpu_model).to(device)
         rng = np.random.default_rng(SEED)
         video = torch.from_numpy(rng.uniform(0.0, 1.0, (1, frames, 256, 320, 3))
@@ -958,8 +1043,8 @@ def _serving_counters():
     from endodav_tpu_torch.kernels.temporal_attention import temporal_attention
 
     return {"flash_attention": qkv_attention, "fused_temporal_block": ftb.fused_temporal_block,
-            "fused_temporal_block_grouped": ftb.launch_grouped, "fused_mlp": fused_mlp,
-            "fused_rcu": fused_rcu, "temporal_attention": temporal_attention}
+            "fused_mlp": fused_mlp, "fused_rcu": fused_rcu,
+            "temporal_attention": temporal_attention}
 
 
 def rcu_routed(model) -> bool:
@@ -977,37 +1062,40 @@ def rcu_routed(model) -> bool:
 RCU_PER_SUFFIX = 7
 
 
+def wide_temporal_blocks(model) -> int:
+    """Temporal blocks a window runs at C >= 512, the TPU's grouped kernel
+    (row 3 of PERF.md's table): two a motion module of that width.  The
+    others are row 2's; one counter counts both."""
+    return 2 * sum(m.temporal_transformer.norm.num_channels >= 512
+                   for m in model.head.motion_modules)
+
+
 def expected_serving_launches(opt, forward, sequences):
     """Launches of each serving kernel in one run, from the configuration:
     per encode batch (dedup) or per window chunk (window path) one flash
     attention a ViT block, and one fused MLP a block where it routes; per
-    window chunk two temporal blocks a motion module, on the grouped kernel
-    where the module has C >= 512, and one head suffix (whatever the
-    number of windows in it): seven fused RCUs where they route.  The
-    serving models are APE: no temporal attention."""
+    window chunk two temporal blocks a motion module (four modules, at
+    every width on the one tensor-core route), and one head suffix
+    (whatever the number of windows in it): seven fused RCUs where they
+    route.  The serving models are APE: no temporal attention."""
     from endodav_tpu_torch.eval.video_inference import window_indices
-    from endodav_tpu_torch.kernels.fused_temporal_block import GROUPED_MIN_C
-    from endodav_tpu_torch.models.endodav import ENDODAV_CONFIGS
     from endodav_tpu_torch.models.vit import VIT_CONFIGS
     from endodav_tpu_torch.ops.quant import resolve_int8
     from endodav_tpu_torch.utils.envflags import env_on
 
     depth = VIT_CONFIGS[opt.encoder]["depth"]
-    cfg = ENDODAV_CONFIGS[opt.encoder]
-    widths = (cfg["out_channels"][2], cfg["out_channels"][3], cfg["features"], cfg["features"])
-    grouped = sum(2 for c in widths if c >= GROUPED_MIN_C)
     chunks = sum(-(-len(window_indices(len(s["colors"]))) // opt.chunk_windows) for s in sequences)
     dedup = forward.dedup
     batches = (sum(-(-len(s["colors"]) // dedup.encode_batch_for(len(s["colors"])))
                    for s in sequences) if dedup is not None else chunks)
     mlp = (env_on("ENDODAV_FUSED_MLP") and forward.model.lora_type == "none"
            and not resolve_int8(forward.model.int8_serving))
-    return ({"flash_attention": depth * batches, "fused_temporal_block": (8 - grouped) * chunks,
-             "fused_temporal_block_grouped": grouped * chunks,
+    return ({"flash_attention": depth * batches, "fused_temporal_block": 8 * chunks,
              "fused_mlp": depth * batches if mlp else 0,
              "fused_rcu": RCU_PER_SUFFIX * chunks if rcu_routed(forward.model) else 0,
              "temporal_attention": 0},
-            dict(chunks=chunks, encode_batches=batches if dedup is not None else 0))
+            dict(chunks=chunks, encode_batches=batches if dedup is not None else 0,
+                 wide_temporal=wide_temporal_blocks(forward.model) * chunks))
 
 
 def run_main_path(args, sequences, device, env=None):
@@ -1020,7 +1108,8 @@ def run_main_path(args, sequences, device, env=None):
     env = env or {}
     with _env(env):
         opt = eval_options(args)
-        forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
+        forward = engine.depth_window_forward(
+            own_policy("build_depth_model", engine.build_depth_model, opt, device))
         counters = _serving_counters()
         torch.cuda.reset_peak_memory_stats(device)
         for fn in counters.values():
@@ -1064,9 +1153,11 @@ def run_streaming(args, sequence, device, env=None):
     env = env or {}
     with _env(env):
         opt = eval_options(args)
-        forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
+        forward = engine.depth_window_forward(
+            own_policy("build_depth_model", engine.build_depth_model, opt, device))
         shape = tuple(opt.depth_image_shape)
-        streamer = DepthStreamer(forward, shape, dedup=forward.dedup, device=device)
+        streamer = own_policy("DepthStreamer", DepthStreamer, forward, shape,
+                              dedup=forward.dedup, device=device)
         counters = _serving_counters()
         for fn in counters.values():
             fn.launches = 0
@@ -1094,17 +1185,16 @@ def run_streaming(args, sequence, device, env=None):
     depth = VIT_CONFIGS[opt.encoder]["depth"]
     dedup = forward.dedup is not None
     # per push (dedup) or per window: one flash attention a ViT block; per
-    # window two temporal blocks a motion module (vits: all C < 512) and
-    # one head suffix, seven fused RCUs where they route
+    # window two temporal blocks a motion module and one head suffix, seven
+    # fused RCUs where they route
     expect = {"flash_attention": depth * (n if dedup else windows),
-              "fused_temporal_block": 8 * windows, "fused_temporal_block_grouped": 0,
-              "fused_mlp": 0, "fused_rcu": RCU_PER_SUFFIX * windows if rcu else 0,
-              "temporal_attention": 0}
+              "fused_temporal_block": 8 * windows, "fused_mlp": 0,
+              "fused_rcu": RCU_PER_SUFFIX * windows if rcu else 0, "temporal_attention": 0}
     name = " ".join([*(f"{k}={v}" for k, v in env.items()), *args]) or "CLI default"
     row = {"name": name, "dedup": dedup, "frames": n, "windows": windows,
            "ms_per_push": statistics.median(push_ms), "ms_per_window": statistics.median(window_ms),
            "flush_ms": flush_ms, "max_buffered": max_buf, "err_vs_offline": err,
-           "launches": launches}
+           "launches": launches, "wide_temporal": wide_temporal_blocks(forward.model) * windows}
     print(f"[streaming] {row} ({card_line()})")
     require(got.shape == offline.shape, f"streaming {name}: {got.shape} vs {offline.shape}")
     require(bool(np.all(np.isfinite(got))) and err <= 1e-4,
@@ -1154,8 +1244,8 @@ def check_small_step(device, root, env=None):
     from endodav_tpu_torch.train.trainer import Trainer
 
     args = ["--height", "64", "--width", "96", "--T", "4", "--depth_image_shape", "56", "70"]
-    gpu = Trainer(train_options(root, *args), device)
-    cpu = Trainer(train_options(root, *args, "--no_cuda"))
+    gpu = own_policy("Trainer", Trainer, train_options(root, *args), device)
+    cpu = own_policy("Trainer", Trainer, train_options(root, *args, "--no_cuda"))
     batch = next(iter(cpu.train_loader))
     with _env(env or {}):
         got = gpu.train_one_batch(batch)
@@ -1212,7 +1302,7 @@ def run_training(device, root, steps=4, trace_dir=None):
 
     opt = train_options(root, "--height", str(TRAIN_HW[0]), "--width", str(TRAIN_HW[1]),
                         "--T", str(TRAIN_T))
-    trainer = Trainer(opt, device)
+    trainer = own_policy("Trainer", Trainer, opt, device)
     print(f"[train] {len(trainer.train_dataset)} clips of T={opt.T}, {len(trainer.train_loader)} "
           f"batches; flags {' '.join(TRAIN_FLAGS)}")
     params = {k: dict(m.named_parameters()) for k, m in trainer.mods.items()}
@@ -1306,8 +1396,7 @@ PROFILE_CATEGORIES = [
     ("port: grid_sample_bwd fused", ("grid_sample_bwd_kernel",)),
     ("port: splat", ("splat_kernel",)),
     ("port: flash attention", ("::attn_kernel<",)),
-    ("port: grouped temporal block", ("::grouped_kernel<",)),
-    ("port: fused temporal block", ("::block_kernel<",)),
+    ("port: temporal block", ("::qkv_kernel<", "::out_kernel<")),
     ("port: fused MLP", ("::mlp_kernel<",)),
     ("port: fused RCU", ("::rcu_kernel<",)),
     ("port: temporal attention", ("::temporal_attn_kernel<",)),
@@ -1400,26 +1489,31 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+
+    from endodav_tpu_torch.bench import tile_error
 
     t0 = time.perf_counter()
-    _build.library()
-    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # both nvcc builds at once
+        for f in [pool.submit(_build.library), pool.submit(tile_error.library)]:
+            f.result()
+    print(f"[build] kernels and the tile's error check built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             print(f"[build] {line.strip()}")
 
-    flash_rows = check_flash(device)
-    flash_grad_err = check_flash_grad(device)
-    temporal_rows = check_temporal(device)
-    mlp_rows = check_fused_mlp(device)
-    rcu_rows = check_fused_rcu(device)
-    tattn_rows, tattn_grad_err = check_temporal_attention(device)
-    int8_row = check_int8(device)
-    warp_rows = check_warps(device)
-    cp_rows = check_warps_cp(device)
-    splat_row = check_splat(device)
+    with ieee_f32():
+        tile_rows = check_tile_error(device)
+        flash_rows = check_flash(device)
+        flash_grad_err = check_flash_grad(device)
+        temporal_rows = check_temporal(device)
+        mlp_rows = check_fused_mlp(device)
+        rcu_rows = check_fused_rcu(device)
+        tattn_rows, tattn_grad_err = check_temporal_attention(device)
+        int8_row = check_int8(device)
+        warp_rows = check_warps(device)
+        cp_rows = check_warps_cp(device)
+        splat_row = check_splat(device)
     from endodav_tpu_torch.kernels.fused_rcu import fused_rcu
     from endodav_tpu_torch.kernels.temporal_attention import temporal_attention
 
@@ -1462,11 +1556,11 @@ def main() -> int:
         trace_dir = args[args.index("--profile-step") + 1] if "--profile-step" in args else None
         train = run_training(device, root, trace_dir=trace_dir)
 
-    def entry(name, source, replaces, launches, max_abs_err, head, shape):
+    def entry(name, source, replaces, launches, max_abs_err, head, shape, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max_abs_err,
                 **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                "shape": shape}
+                "shape": shape, **extra}
 
     def head_of(rows, shape):
         return next(r for r in rows if r["shape"] == shape and r["dtype"] == "float32")
@@ -1482,6 +1576,7 @@ def main() -> int:
     colour_cp = next(r for r in cp_rows if r["call"] == "colour synthesis")
     consistency_cp = next(r for r in cp_rows if r["call"] == "flow_consistency")
     trained = train["launches"]
+    wide = sum(r["wide_temporal"] for r in runs + streams)
     warp_src, warp_py = "endodav_tpu_torch/csrc/warp.cu", "endodav_tpu/kernels/warp_matmul.py"
     cp_err = lambda row, keys: max(row[f"{k}_vs_plain"] for k in keys)  # noqa: E731
     kernels = [
@@ -1490,14 +1585,16 @@ def main() -> int:
               served("flash_attention") + trained["flash_attention"],
               max(f32(flash_rows), flash_grad_err),
               head_of(flash_rows, "B=64 N=1703 H=6 Dh=64"), "B=64 N=1703 H=6 Dh=64"),
+        # one route and one counter for both TPU kernels; the C >= 512
+        # share comes from the models' widths (the counter's total is
+        # checked against the configuration in each run)
         entry("fused_temporal_block", "endodav_tpu_torch/csrc/fused_temporal_block.cu",
               "endodav_tpu/kernels/fused_temporal_block.py:76",
-              served("fused_temporal_block") + trained["fused_temporal_block"],
+              served("fused_temporal_block") + trained["fused_temporal_block"] - wide,
               f32(block_rows), head_of(block_rows, "rows=1702 T=32 C=192"),
               "rows=1702 T=32 C=192"),
         entry("fused_temporal_block_grouped", "endodav_tpu_torch/csrc/fused_temporal_block.cu",
-              "endodav_tpu/kernels/fused_temporal_block.py:120",
-              served("fused_temporal_block_grouped"), f32(grouped_rows),
+              "endodav_tpu/kernels/fused_temporal_block.py:120", wide, f32(grouped_rows),
               head_of(grouped_rows, "rows=1702 T=32 C=1024"), "rows=1702 T=32 C=1024"),
         entry("temporal_attention", "endodav_tpu_torch/csrc/temporal_attention.cu",
               "endodav_tpu/kernels/temporal_attention.py:31",
@@ -1541,6 +1638,10 @@ def main() -> int:
     missing = [k["name"] for k in kernels if k["launches"] == 0
                and k["name"] != "grid_sample_bwd_fused_cp"]
     require(not missing, f"kernels of the main paths never launched: {missing}")
+    worst = max((r for r in tile_rows), key=lambda r: r["tile"])
+    print(f"[summary] tile f32 error: at most {worst['tile']:.3e} (K={worst['k']} "
+          f"{worst['dist']}); one f32 product up to "
+          f"{max(r['f32_product'] for r in tile_rows):.3e}")
     print(f"[summary] int8_dense {int8_row['ms']:.3f} ms vs f32 linear "
           f"{int8_row['f32_linear_ms']:.3f} ms at {int8_row['shape']} ({card})")
     print(f"[summary] whole model max |Δdisp| {model_err:.3e}; training "

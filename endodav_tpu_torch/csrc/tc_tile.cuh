@@ -9,10 +9,22 @@
 //         a_lo = tf32(a - a_hi) (`cvt.rna.tf32.f32`), split here while the
 //         A fragments are built; B comes as two planes, hi and lo, split
 //         the same way once by the wrapper (kernels/tf32x3.py).  Each
-//         k-step adds a_lo*b_hi and a_hi*b_lo first, then a_hi*b_hi, so the
-//         small terms are not lost under the large one: the product keeps
-//         f32 accuracy (the a_lo*b_lo term, below 2^-22 of the product, is
-//         left out) at three tensor-core passes.
+//         k-step sums a_lo*b_hi and a_hi*b_lo first, then a_hi*b_hi, so the
+//         small terms are not lost under the large one (the a_lo*b_lo
+//         term, below 2^-22 of the product, is left out).
+//
+// How a k-step's passes reach the accumulator.  The tensor core adds its
+// products to the accumulator it is given and cuts the sum toward zero at
+// the accumulator's magnitude, not to nearest; the error of one pass is up
+// to about an ulp of the running sum, always of one sign.  Passes straight
+// into the running sum add 3*K/8 such cuts, which grow with K (on an H100
+// 3.1e-5 of max(1, |ref|) at K = 4096, 5.0e-5 on same-sign operands;
+// PERF.md).  So the passes of two k-steps run into a partial that starts
+// from zero, whose cuts are at the magnitude of sixteen products, and the
+// partial is added to the running sum on the FMA pipe, rounded to
+// nearest: f32's own error level (1.2e-6 at K = 4096), for MT*4 f32 adds
+// a pair of n-tiles every two k-steps and the A fragments of two k-steps
+// in registers.  bench/tensor_core_tile.cu measures the other orders.
 //
 // Why mma.sync and not wgmma: 3xTF32 at a third of the 495 TFLOP/s TF32
 // rate (165 TFLOP/s) is 2.5x the f32 SIMT rate of 67, and mma.sync at
@@ -55,6 +67,15 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d = a*b on a zero accumulator (the first pass of a promoted k-step)
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -93,50 +114,67 @@ template <typename E, int ROWB = 128> struct Swizzled {
 
 // acc[mt][nt] += A[mt*16.., 0:kdim] * B[nt*8.., 0:kdim]^T for one warp:
 // A at `a` in layout la, B at `bh` (and `bl`, the lo plane, for f32;
-// ignored for bf16) in layout lb.  kdim is a multiple of 8 (f32) or 16
-// (bf16), NT is even.  Accumulator element c of acc[mt][nt] is at row
-// mt*16 + lane/4 (+8 for c >= 2), column nt*8 + 2*(lane%4) + c%2.
-// Fragments come by ldmatrix: A one x4 a 16-row tile (rows 0-7 and 8-15,
-// the two k halves), B one x4 a pair of 8-column tiles.
+// ignored for bf16) in layout lb.  kdim is a multiple of 16, NT is even.
+// Accumulator element c of acc[mt][nt] is at row mt*16 + lane/4 (+8 for
+// c >= 2), column nt*8 + 2*(lane%4) + c%2.  Fragments come by ldmatrix:
+// A one x4 a 16-row tile (rows 0-7 and 8-15, the two k halves), B one x4
+// a pair of 8-column tiles.
 template <int MT, int NT, typename LA, typename LB,
           typename = std::enable_if_t<!std::is_integral<LA>::value>>
 __device__ __forceinline__ void warp_tile(float (&acc)[MT][NT][4], const float* a, LA la,
                                           const float* bh, const float* bl, LB lb, int kdim) {
   static_assert(NT % 2 == 0, "B fragments come in pairs of n-tiles");
+  constexpr int KS = 2;  // k-steps a partial
   const int lane = threadIdx.x & 31;
   const int ra = lane % 8 + 8 * ((lane / 8) % 2), ca = 4 * (lane / 16);
   const int rb = lane % 8 + 8 * (lane / 16), cb = 4 * ((lane / 8) % 2);
-#pragma unroll 2
-  for (int k0 = 0; k0 < kdim; k0 += 8) {
-    uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll 1
+  for (int k0 = 0; k0 < kdim; k0 += 8 * KS) {
+    uint32_t ahi[KS][MT][4], alo[KS][MT][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      uint32_t v[4];
-      ldsm4(v, a + la.at(mt * 16 + ra, k0 + ca));
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ahi[mt][i] = tf32_rna(__uint_as_float(v[i]));
-        alo[mt][i] = tf32_rna(__uint_as_float(v[i]) - __uint_as_float(ahi[mt][i]));
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t v[4];
+        ldsm4(v, a + la.at(mt * 16 + ra, k0 + 8 * ks + ca));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ahi[ks][mt][i] = tf32_rna(__uint_as_float(v[i]));
+          alo[ks][mt][i] = tf32_rna(__uint_as_float(v[i]) - __uint_as_float(ahi[ks][mt][i]));
+        }
       }
-    }
 #pragma unroll
     for (int np = 0; np < NT / 2; ++np) {
-      uint32_t hi[4], lo[4];
-      const int off = lb.at(np * 16 + rb, k0 + cb);
-      ldsm4(hi, bh + off);
-      ldsm4(lo, bl + off);
+      uint32_t hi[KS][4], lo[KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int off = lb.at(np * 16 + rb, k0 + 8 * ks + cb);
+        ldsm4(hi[ks], bh + off);
+        ldsm4(lo[ks], bl + off);
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int nt = 2 * np + j;
-        const uint32_t bhi[2] = {hi[2 * j], hi[2 * j + 1]};
-        const uint32_t blo[2] = {lo[2 * j], lo[2 * j + 1]};
-        // pass-major: MT independent products between two on one accumulator
+        // pass-major: MT independent products between two on one partial
+        float part[MT][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], alo[mt], bhi);
+        for (int ks = 0; ks < KS; ++ks) {
+          const uint32_t bhi[2] = {hi[ks][2 * j], hi[ks][2 * j + 1]};
+          const uint32_t blo[2] = {lo[ks][2 * j], lo[ks][2 * j + 1]};
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], ahi[mt], blo);
+          for (int mt = 0; mt < MT; ++mt) {
+            if (ks == 0) mma_tf32_zero(part[mt], alo[ks][mt], bhi);
+            else mma_tf32(part[mt], alo[ks][mt], bhi);
+          }
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], ahi[mt], bhi);
+          for (int mt = 0; mt < MT; ++mt) mma_tf32(part[mt], ahi[ks][mt], blo);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_tf32(part[mt], ahi[ks][mt], bhi);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mt][nt][c] = __fadd_rn(acc[mt][nt][c], part[mt][c]);
       }
     }
   }

@@ -30,6 +30,7 @@ from endodav_tpu_torch.geometry.transforms import disp_to_depth
 from endodav_tpu_torch.models.endodav import EndoDAV, endodav_lora_alpha
 from endodav_tpu_torch.models.lora import merge_lora_params
 from endodav_tpu_torch.utils.convert import load_reference_pth
+from endodav_tpu_torch.utils.precision import set_f32_policy
 
 __all__ = ["SPLITS_DIR", "resolve_device", "init_random_", "build_depth_model",
            "depth_window_forward", "evaluate_video_sequences", "confidence_interval_95"]
@@ -92,8 +93,9 @@ def _make_model(opt, lora_type: str, temporal_lora: bool) -> EndoDAV:
 def build_depth_model(opt, device: torch.device | None = None) -> EndoDAV:
     """The EndoDAV model in eval mode on ``device``: seeded random weights,
     replaced by a reference .pth when one is found, LoRA merged on
-    ``--merge_lora``."""
+    ``--merge_lora``; the f32 policy (`set_f32_policy`) set first."""
     device = resolve_device(opt) if device is None else device
+    set_f32_policy()
     model = init_random_(_make_model(opt, opt.lora_type, opt.temporal_lora), opt.seed)
     path = None
     if opt.load_weights_folder:

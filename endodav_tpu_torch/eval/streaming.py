@@ -40,6 +40,7 @@ from endodav_tpu_torch.eval.metrics import compute_scale_and_shift, interpolate_
 from endodav_tpu_torch.eval.video_inference import (frame_scale, keep_aspect_size,
                                                     upload_resized, window_chunk_forward)
 from endodav_tpu_torch.models.endodav import INFER_LEN, INTERP_LEN, KEYFRAMES, OVERLAP
+from endodav_tpu_torch.utils.precision import set_f32_policy
 
 __all__ = ["DepthStreamer"]
 
@@ -67,6 +68,7 @@ class DepthStreamer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DepthStreamer: no CUDA device is available; pass device='cpu' "
                                "to run on the CPU")
+        set_f32_policy()
         if forward_windows is None and dedup is None:
             raise ValueError("DepthStreamer needs forward_windows or dedup")
         self._fwd = forward_windows

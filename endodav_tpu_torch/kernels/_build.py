@@ -28,7 +28,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _SOURCES = ("flash_attention.cu", "fused_temporal_block.cu", "fused_mlp.cu", "warp.cu",
             "fused_rcu.cu", "temporal_attention.cu")
-_HEADERS = ("common.cuh", "tc_tile.cuh", "tma.cuh")
+_HEADERS = ("common.cuh", "tc_tile.cuh", "tma.cuh", "warp_attention.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,11 +43,8 @@ _SIGNATURES = {
     "endodav_cuda_error_string": ([_int], ctypes.c_char_p),
     "endodav_flash_attention": ([_int, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
                                  _ll, _ll, _f, _vp], _int),
-    "endodav_fused_temporal_block": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                                      _vp, _vp, _int, _int, _int, _int, _int, _f, _vp],
-                                     _int),
-    "endodav_fused_temporal_block_grouped": ([_int, *[_vp] * 15, _int, _int, _int, _int, _f,
-                                              _vp], _int),
+    "endodav_fused_temporal_block": ([_int, *[_vp] * 15, _int, _int, _int, _int, _int, _int,
+                                      _f, _vp], _int),
     "endodav_fused_mlp": ([_int, *[_vp] * 8, _int, _int, _int, _int, _vp], _int),
     "endodav_grid_sample_fwd": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
                                  _int, _vp], _int),
@@ -55,7 +52,7 @@ _SIGNATURES = {
                                  _int, _int, _int, _int, _vp], _int),
     "endodav_splat": ([_vp, _vp, _vp, _int, _int, _int, _int, _vp], _int),
     "endodav_fused_rcu": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp], _int),
-    "endodav_temporal_attention": ([_int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
+    "endodav_temporal_attention": ([_int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                                     _f, _vp], _int),
 }
 

@@ -2,29 +2,32 @@
 versions and the wrapper.
 
 Port of `endodav_tpu/kernels/fused_temporal_block.py` (the Pallas
-`_kernel` and, for C >= 512, `_grouped_kernel`).  `fused_temporal_block(x, ...)` returns
+`_kernel` for C < 512 and `_grouped_kernel` for C >= 512, which compute
+the same function).  `fused_temporal_block(x, ...)` returns
 ``x + Attn(LN(x) + pe) Wo + bo`` over x [B*, T, C] with LayerNorm eps
 1e-5, per-head softmax attention along T and the weights in the JAX
-layout [C_in, C_out].  On a CUDA tensor it runs `csrc/fused_temporal_block.cu`:
-C < 512 the block kernel, C >= 512 the head-grouped route (as
-`fused_temporal_block.py:252` routes), two tensor-core launches (the
-q|k|v projection, then the attention with the out-projection; f32 as
-3xTF32), each route with its own launch count (`fused_temporal_block.launches`,
-`launch_grouped.launches`: one a call).  On a CPU tensor it runs the plain versions:
-`reference_block` (the port of the JAX `reference_block`) below 512
-channels, `grouped_reference_block` (the group partial sums of
-`_grouped_kernel`, in its order) from 512.  Shapes neither route takes
-raise; nothing falls back.
+layout [C_in, C_out].  On a CUDA tensor it runs
+`csrc/fused_temporal_block.cu` at every width: two tensor-core launches
+(the q|k|v projection, then the attention with the out-projection; f32 as
+3xTF32), in the tiles `tile_config` picks, counted once a call in
+``fused_temporal_block.launches``.  On a CPU tensor it runs the plain
+versions: `reference_block` (the port of the JAX `reference_block`) below
+512 channels, `grouped_reference_block` (the group partial sums of
+`_grouped_kernel`, in its order) from 512.  The kernels sum the heads in
+order in one f32 accumulator and add x and bo to it before rounding,
+which is `grouped_reference_block`'s order at every C (one group below
+512 channels): that is the plain version the card is held against.
+Shapes the route does not take raise; nothing falls back.
 Weights: contiguous, or the transpose of a contiguous tensor (the motion
-modules pass ``lin.weight.t()``).  What each kernel reads is made from
-them once per weight version and kept in ``fused_temporal_block.planes``:
-the JAX-layout copy for the block kernel, the K-major hi and lo planes
-for the grouped route (`tf32x3.kmajor_planes`).
-On the card the kernels sit in `_FusedTemporalBlock`, whose backward
-recomputes the plain version under autograd, as JAX's `_bwd`
-(fused_temporal_block.py:262-268) does.  The training step does not run
-this block (JAX fuses it only at inference); the gradient keeps the
-wrapper from ever handing back a result cut off from autograd.
+modules pass ``lin.weight.t()``).  The kernels read them K-major, as hi
+and lo planes for f32 (`tf32x3.kmajor_planes`), made from them once per
+weight version and kept in ``fused_temporal_block.planes``.
+Where a gradient is wanted the kernels sit in `_FusedTemporalBlock`,
+whose backward recomputes the plain version under autograd, as JAX's
+`_bwd` (fused_temporal_block.py:262-268) does; serving (no gradient)
+launches them directly.  The training step does not run this block (JAX
+fuses it only at inference); the gradient keeps the wrapper from ever
+handing back a result cut off from autograd.
 """
 
 from __future__ import annotations
@@ -32,14 +35,13 @@ from __future__ import annotations
 import torch
 
 from endodav_tpu_torch.kernels import _build
-from endodav_tpu_torch.kernels.tf32x3 import PlaneCache, check_layout, jax_layout, kmajor_planes
+from endodav_tpu_torch.kernels.tf32x3 import PlaneCache, check_layout, kmajor_planes
 
 __all__ = ["reference_block", "grouped_reference_block", "head_groups", "fused_temporal_block",
-           "rows_per_block", "launch_grouped", "GROUPED_MIN_C"]
+           "tile_config", "GROUPED_MIN_C"]
 
-SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-SMEM_TARGET = 100 * 1024  # more rows per block only while two blocks fit an SM
-GROUPED_MIN_C = 512  # channels from which the head-grouped kernel runs
+GROUPED_MIN_C = 512  # channels from which the CPU's plain version sums head groups
+CMAX = 1024  # widest C the kernels' LayerNorm statistics hold
 
 
 def _ln_pe(x, gamma, beta, pe):
@@ -97,23 +99,29 @@ def grouped_reference_block(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int):
     return (x.float() + acc + bo.float()).to(x.dtype)
 
 
-def _smem_bytes(t: int, c: int, rpb: int) -> int:
-    """Mirror of csrc/fused_temporal_block.cu:smem_bytes."""
-    mpad = -(-(rpb * t) // 8) * 8
-    return (mpad * c + mpad * (3 * c + 1) + 8 * 32) * 4
-
-
-def rows_per_block(t: int, c: int) -> int:
-    """Rows of [T, C] per block: the most of 4, 2 whose footprint leaves
-    room for two blocks per SM (more weight reuse per block), else 1."""
-    for rpb in (4, 2):
-        if _smem_bytes(t, c, rpb) <= SMEM_TARGET:
-            return rpb
-    return 1
-
-
 def _plain_version(c: int):
     return grouped_reference_block if c >= GROUPED_MIN_C else reference_block
+
+
+def tile_config(c: int, heads: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(bn, hs) of the kernels (checked again by
+    csrc/fused_temporal_block.cu): the column tile, 256, 192 or 64 (the
+    widest that divides C, at most 8 of them a cluster), and the heads a K
+    step of the out-projection, the fewest whose width is a multiple of a
+    64-byte stage (16 f32 or 32 bf16 columns) and at most 128.  Raises
+    for widths the route does not take."""
+    dh = c // heads if heads > 0 and c % heads == 0 else 0
+    bk = 16 if dtype == torch.float32 else 32
+    bn = next((b for b in (256, 192, 64) if c % b == 0), 0)
+    hs = next((h for h in range(1, heads + 1)
+               if heads % h == 0 and (h * dh) % bk == 0 and h * dh <= 128), 0) if dh else 0
+    if not (c % 64 == 0 and c <= CMAX and dh % 4 == 0 and 0 < dh <= 128 and c // bn <= 8
+            and hs):
+        raise ValueError(f"fused_temporal_block: C={c} with {heads} heads: the grouped route "
+                         f"takes C a multiple of 64 up to {CMAX} in column tiles of 256, 192 or "
+                         f"64 (at most 8 a cluster) and a head width (here {dh or c / heads}) "
+                         f"that is a multiple of 4 and at most 128")
+    return bn, hs
 
 
 class _FusedTemporalBlock(torch.autograd.Function):
@@ -142,18 +150,21 @@ def fused_temporal_block(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int = 8)
         return _plain_version(x.shape[-1])(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_temporal_block: unsupported device {x.device}")
-    return _FusedTemporalBlock.apply(heads, x, gamma, beta, pe, wq, wk, wv, wo, bo)
+    args = (x, gamma, beta, pe, wq, wk, wv, wo, bo)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _FusedTemporalBlock.apply(heads, *args)
+    return _launch(*args, heads)  # serving: no autograd bookkeeping
 
 
 def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
-    """Launch the kernel on CUDA tensors; returns a new [B*, T, C]."""
+    """Check the CUDA tensors and run the two launches: the q|k|v
+    projection into an f32 scratch [B*T, 3C] (JAX keeps q|k|v in f32),
+    then the attention and out-projection; returns a new [B*, T, C]."""
     bstar, t, c = x.shape
     code = _build.dtype_code(x, "fused_temporal_block")
     if not 1 <= t <= 32:
         raise ValueError(f"fused_temporal_block: T={t} outside 1..32")
-    if c % heads or c % 4:
-        raise ValueError(f"fused_temporal_block: C={c} must be a multiple of 4 and of "
-                         f"heads={heads}")
+    bn, hs = tile_config(c, heads, x.dtype)
     expect = {"gamma": ((c,), torch.float32), "beta": ((c,), torch.float32),
               "pe": ((t, c), torch.float32), "wq": ((c, c), x.dtype),
               "wk": ((c, c), x.dtype), "wv": ((c, c), x.dtype), "wo": ((c, c), x.dtype),
@@ -169,63 +180,24 @@ def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
             check_layout(a, f"fused_temporal_block: {name}")
         elif not a.is_contiguous():
             raise ValueError(f"fused_temporal_block: {name} must be contiguous")
-    if c >= GROUPED_MIN_C:
-        return launch_grouped(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads)
-    rpb = rows_per_block(t, c)
-    smem = _smem_bytes(t, c, rpb)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_temporal_block: C={c}, T={t} needs {smem} bytes of shared "
-                         f"memory per block, over the {SMEM_LIMIT} a Hopper block has")
     lib = _build.library()
-    wq, wk, wv, wo = (jax_layout(fused_temporal_block.planes, w) for w in (wq, wk, wv, wo))
-    _check_aligned(x, wq, wk, wv, wo)
+    planes = [kmajor_planes(fused_temporal_block.planes, w) for w in (wq, wk, wv, wo)]
+    for a in (x, *(p for pair in planes for p in pair)):
+        if a.data_ptr() % 16:
+            raise ValueError("fused_temporal_block: x and the weights must start 16-byte "
+                             "aligned (TMA reads them)")
     out = torch.empty_like(x)
+    qkv = torch.empty((bstar * t, 3 * c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.endodav_fused_temporal_block(
             code, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), pe.data_ptr(),
-            wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-            out.data_ptr(), bstar, t, c, heads, rpb, float((c // heads) ** -0.5),
-            _build.stream_of(x))
+            *(hi.data_ptr() for hi, _ in planes), *(lo.data_ptr() for _, lo in planes),
+            bo.data_ptr(), out.data_ptr(), qkv.data_ptr(), bstar, t, c, heads, bn, hs,
+            float((c // heads) ** -0.5), _build.stream_of(x))
     _build.check(err, "fused_temporal_block")
     fused_temporal_block.launches += 1
     return out
 
 
-def _check_aligned(*tensors):
-    for a in tensors:
-        if a.data_ptr() % 16:
-            raise ValueError("fused_temporal_block: x and the weights must start 16-byte "
-                             "aligned (the kernels read them as vectors)")
-
-
-def launch_grouped(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
-    """Run the head-grouped route on CUDA tensors already checked by
-    `_launch`: the q|k|v projection into an f32 scratch [B*T, 3C], then the
-    attention and out-projection; returns a new [B*, T, C]."""
-    bstar, t, c = x.shape
-    dh = c // heads
-    if c % 256 or c > 1024 or dh % 32 or dh > 128:
-        raise ValueError(f"fused_temporal_block: C={c} with {heads} heads: the grouped route "
-                         f"takes C a multiple of 256 up to 1024 and a head width (here {dh}) "
-                         f"that is a multiple of 32 and at most 128")
-    code = _build.dtype_code(x, "fused_temporal_block")
-    lib = _build.library()
-    planes = [kmajor_planes(fused_temporal_block.planes, w) for w in (wq, wk, wv, wo)]
-    _check_aligned(x, *(p for pair in planes for p in pair))
-    out = torch.empty_like(x)
-    # q|k|v of every token in f32, as JAX keeps them
-    qkv = torch.empty((bstar * t, 3 * c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.endodav_fused_temporal_block_grouped(
-            code, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), pe.data_ptr(),
-            *(hi.data_ptr() for hi, _ in planes), *(lo.data_ptr() for _, lo in planes),
-            bo.data_ptr(), out.data_ptr(), qkv.data_ptr(), bstar, t, c, heads,
-            float(dh ** -0.5), _build.stream_of(x))
-    _build.check(err, "fused_temporal_block (grouped)")
-    launch_grouped.launches += 1
-    return out
-
-
 fused_temporal_block.launches = 0
 fused_temporal_block.planes = PlaneCache()
-launch_grouped.launches = 0

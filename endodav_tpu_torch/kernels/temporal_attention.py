@@ -5,8 +5,10 @@ Port of `endodav_tpu/kernels/temporal_attention.py`.
 ``temporal_attention(q, k, v, scale)`` attends over q, k, v [B*, T, H, Dh]
 (T <= 64) in f32 or bf16: f32 scores and softmax, p rounded to v's dtype
 before PV (:47-52), the output in q's dtype.  On a CUDA tensor the forward
-launches `csrc/temporal_attention.cu`; on a CPU tensor it runs
-`temporal_attention_reference`.  On both, the gradient is
+launches `csrc/temporal_attention.cu` (one warp a row and head,
+`csrc/warp_attention.cuh`); on a CPU tensor it runs
+`temporal_attention_reference`.  Without a gradient to track the forward
+runs alone, outside autograd.  On both, the gradient is
 `temporal_attention_backward`, the port of JAX's ``_bwd`` (:89-99): plain
 einsums with the softmax recomputed in f32, as JAX's ``custom_vjp``.  Both
 are the functions of the flash-attention kernel's plain version and
@@ -19,6 +21,8 @@ training step and every RoPE module.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from endodav_tpu_torch.kernels import _build
@@ -28,27 +32,33 @@ from endodav_tpu_torch.kernels.flash_attention import attention_reference as \
     temporal_attention_reference
 
 __all__ = ["MAX_T", "temporal_attention", "temporal_attention_reference",
-           "temporal_attention_backward", "head_group"]
+           "temporal_attention_backward", "warps_per_block"]
 
 MAX_T = 64
-SMEM_TARGET = 48 * 1024  # a block's footprint that leaves room for several blocks an SM
+MAX_WARPS = 4            # warps a block: one (row, head) each
 SMEM_LIMIT = 232448      # bytes of shared memory one Hopper block may use
 
 
-def _smem_bytes(t: int, dh: int, hg: int) -> int:
-    """Mirror of csrc/temporal_attention.cu:smem_bytes: q, k, v [T, HG*Dh + 1]
-    and the scores [HG, T, T + 1], f32."""
-    return (3 * t * (hg * dh + 1) + hg * t * (t + 1)) * 4
+def _odd_words(n: int) -> int:
+    """csrc/warp_attention.cuh:odd_words: n rounded up to an odd number of
+    4-float words."""
+    return ((-(-n // 4)) | 1) * 4
 
 
-def head_group(t: int, heads: int, dh: int) -> tuple[int, int]:
-    """(heads a block, threads a block): the most heads dividing ``heads``
-    whose footprint stays within SMEM_TARGET (at least one), and one
-    thread per (head, query), in whole warps, from 128 (the loads and the
-    PV phase have HG*T*Dh items) up to 256."""
-    hg = next((g for g in range(heads, 0, -1)
-               if heads % g == 0 and _smem_bytes(t, dh, g) <= SMEM_TARGET), 1)
-    return hg, min(256, max(128, -(-hg * t // 32) * 32))
+def warp_bytes(t: int, dh: int) -> int:
+    """Mirror of csrc/temporal_attention.cu:warp_floats, in bytes: one
+    warp's q, k, v [TM, ld] and p [QB, pld] in f32, TM the keys padded to
+    16, 32 or 64 and the rows to an odd number of 16-byte words."""
+    tm = 16 if t <= 16 else 32 if t <= 32 else 64
+    ld = _odd_words(dh)
+    return 4 * (3 * tm * ld + (32 if tm >= 32 else 16) * _odd_words(tm))
+
+
+@functools.lru_cache(maxsize=256)
+def warps_per_block(t: int, dh: int) -> int:
+    """Warps a block: the most of 4, 2, 1 whose shared memory fits a
+    Hopper block (several blocks an SM where they fit)."""
+    return next((w for w in (MAX_WARPS, 2, 1) if w * warp_bytes(t, dh) <= SMEM_LIMIT), 0)
 
 
 def _launch(q, k, v, scale):
@@ -60,10 +70,10 @@ def _launch(q, k, v, scale):
                              f"{a.device}, q {tuple(q.shape)} {q.dtype} on {q.device}")
     if not 1 <= t <= MAX_T:
         raise ValueError(f"temporal_attention: T={t}; the kernel takes 1..{MAX_T}")
-    hg, threads = head_group(t, heads, dh)
-    if _smem_bytes(t, dh, hg) > SMEM_LIMIT:
-        raise ValueError(f"temporal_attention: T={t} Dh={dh} needs {_smem_bytes(t, dh, hg)} "
-                         "bytes of shared memory a block")
+    wpb = warps_per_block(t, dh)
+    if not wpb:
+        raise ValueError(f"temporal_attention: T={t} Dh={dh} needs {warp_bytes(t, dh)} bytes of "
+                         f"shared memory a warp, over the {SMEM_LIMIT} a Hopper block has")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if rows == 0:
@@ -71,7 +81,7 @@ def _launch(q, k, v, scale):
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.endodav_temporal_attention(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                             out.data_ptr(), rows, t, heads, dh, hg, threads,
+                                             out.data_ptr(), rows, t, heads, dh, wpb,
                                              float(scale), _build.stream_of(q))
     _build.check(err, "temporal_attention")
     temporal_attention.launches += 1
@@ -99,7 +109,12 @@ def temporal_attention(q, k, v, scale: float | None = None):
         raise ValueError(f"temporal_attention: unsupported device {q.device}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _TemporalAttention.apply(q, k, v, float(scale))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _TemporalAttention.apply(q, k, v, float(scale))
+    # no gradient wanted: the forward alone, without autograd's bookkeeping
+    if q.device.type == "cpu":
+        return temporal_attention_reference(q, k, v, float(scale))
+    return _launch(q, k, v, float(scale))
 
 
 temporal_attention.launches = 0

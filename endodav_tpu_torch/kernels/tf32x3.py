@@ -28,8 +28,7 @@ from collections import OrderedDict
 
 import torch
 
-__all__ = ["split_tf32", "tf32x3_matmul", "check_layout", "PlaneCache", "kmajor_planes",
-           "jax_layout"]
+__all__ = ["split_tf32", "tf32x3_matmul", "check_layout", "PlaneCache", "kmajor_planes"]
 
 
 def _rna_tf32(a: torch.Tensor) -> torch.Tensor:
@@ -118,11 +117,3 @@ def kmajor_planes(cache: PlaneCache, w: torch.Tensor) -> tuple[torch.Tensor, tor
         k = cache.get(w, lambda: w.t().contiguous())
         return k, k
     return cache.get(w, lambda: split_tf32(w.t().contiguous()))
-
-
-def jax_layout(cache: PlaneCache, w: torch.Tensor) -> torch.Tensor:
-    """w [C_in, C_out] contiguous, for kernels that read the JAX layout:
-    w itself, or a copy made once per weight version when w is a
-    transposed view."""
-    check_layout(w, "weight")
-    return w if w.is_contiguous() else cache.get(w, w.contiguous)

@@ -36,6 +36,7 @@ from endodav_tpu_torch.ops.jitter import device_pyramid
 from endodav_tpu_torch.train import losses as L
 from endodav_tpu_torch.train import optim as O
 from endodav_tpu_torch.utils.convert import load_reference_pth
+from endodav_tpu_torch.utils.precision import set_f32_policy
 
 __all__ = ["Trainer", "build_models", "init_train_", "MAIN_COMPONENTS", "POSITION_COMPONENTS"]
 
@@ -117,6 +118,7 @@ class Trainer:
     def __init__(self, opt, device: torch.device | None = None):
         self.opt = opt
         self.device = resolve_device(opt) if device is None else device
+        set_f32_policy()
         if opt.height % 32 or opt.width % 32:
             raise ValueError(f"--height/--width must be multiples of 32, got "
                              f"{opt.height}x{opt.width}")

@@ -4,7 +4,14 @@ Marked `cuda`; each test skips without a card (the kernels have no CPU
 mode).  The file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
+
+No test sets PyTorch's TF32 switches for the process: the plain versions
+that run cuDNN convolutions do so inside a local `ieee_convs()` context,
+and the whole-model test starts from PyTorch's defaults so that the entry
+point's own f32 policy is what it holds.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -24,8 +31,15 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def ieee_convs():
+    """cuDNN's f32 convolutions in IEEE f32 (TF32 off) for the block only."""
+    return torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                      benchmark=torch.backends.cudnn.benchmark,
+                                      deterministic=torch.backends.cudnn.deterministic,
+                                      allow_tf32=False)
 
 
 @pytest.mark.cuda
@@ -204,9 +218,9 @@ def test_fused_temporal_block_gradient_matches_plain():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,t,c", [(5, 32, 1024), (3, 7, 1024), (9, 5, 512)])
 def test_grouped_temporal_block_matches_plain(dtype, rows, t, c):
-    """C >= 512 launches the head-grouped kernel (and not the block kernel)."""
-    from endodav_tpu_torch.kernels.fused_temporal_block import (grouped_reference_block,
-                                                                 launch_grouped)
+    """C >= 512: the tensor-core route, one launch counted a call, the same
+    bits twice."""
+    from endodav_tpu_torch.kernels.fused_temporal_block import grouped_reference_block
 
     dev = _card()
     rng = np.random.default_rng(rows * c + t)
@@ -218,11 +232,11 @@ def test_grouped_temporal_block_matches_plain(dtype, rows, t, c):
     args = [a.to(dtype) for a in (x, *ws, f(c))]
     want = grouped_reference_block(args[0].float(), gamma, beta, pe,
                                    *(a.float() for a in args[1:5]), args[5].float(), 8)
-    before = (launch_grouped.launches, fused_temporal_block.launches)
+    before = fused_temporal_block.launches
     got = fused_temporal_block(args[0], gamma, beta, pe, *args[1:5], args[5], 8)
     again = fused_temporal_block(args[0], gamma, beta, pe, *args[1:5], args[5], 8)
     torch.cuda.synchronize()
-    assert (launch_grouped.launches, fused_temporal_block.launches) == (before[0] + 2, before[1])
+    assert fused_temporal_block.launches == before + 2
     assert got.dtype == dtype and torch.equal(got, again)  # no atomics: the same bits
     assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
@@ -278,8 +292,7 @@ def test_grouped_block_tensor_cores_at_row_counts(dtype, rows):
     at a 518x644 window's, against the grouped plain version at TOL; the
     weights as the motion modules pass them (`lin.weight.t()` views) give
     the same bits as contiguous JAX-layout copies."""
-    from endodav_tpu_torch.kernels.fused_temporal_block import (grouped_reference_block,
-                                                                 launch_grouped)
+    from endodav_tpu_torch.kernels.fused_temporal_block import grouped_reference_block
 
     dev = _card()
     t, c = 32, 1024
@@ -293,11 +306,11 @@ def test_grouped_block_tensor_cores_at_row_counts(dtype, rows):
     bo = f(c, sd=0.1).to(dtype)
     want = grouped_reference_block(x.float(), gamma, beta, pe, *(w.float() for w in ws),
                                    bo.float(), 8)
-    before = launch_grouped.launches
+    before = fused_temporal_block.launches
     got = fused_temporal_block(x, gamma, beta, pe, *ws, bo, 8)
     copies = fused_temporal_block(x, gamma, beta, pe, *(w.contiguous() for w in ws), bo, 8)
     torch.cuda.synchronize()
-    assert launch_grouped.launches == before + 2 and got.dtype == dtype
+    assert fused_temporal_block.launches == before + 2 and got.dtype == dtype
     assert torch.equal(got, copies)
     assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
@@ -361,7 +374,6 @@ def test_fused_rcu_matches_plain(dtype, b, h, w, c):
     from endodav_tpu_torch.kernels.fused_rcu import fused_rcu, rcu_reference
 
     dev = _card()
-    torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(b * h * w + c)
     x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(dev).to(dtype)
     convs = [torch.nn.Conv2d(c, c, 3, padding=1).to(dev) for _ in range(2)]
@@ -371,7 +383,8 @@ def test_fused_rcu_matches_plain(dtype, b, h, w, c):
                 (rng.standard_normal(tuple(conv.weight.shape)) * (9 * c) ** -0.5)
                 .astype(np.float32)))
         wq = [conv.weight.to(dtype).float() for conv in convs]
-        want = rcu_reference(x.float(), wq[0], convs[0].bias, wq[1], convs[1].bias)
+        with ieee_convs():
+            want = rcu_reference(x.float(), wq[0], convs[0].bias, wq[1], convs[1].bias)
         before = fused_rcu.launches
         got = fused_rcu(x, *convs)
     torch.cuda.synchronize()
@@ -384,17 +397,17 @@ def test_fused_rcu_gradient_matches_plain():
     from endodav_tpu_torch.kernels.fused_rcu import fused_rcu, rcu_reference
 
     dev = _card()
-    torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(21)
     x = torch.from_numpy(rng.standard_normal((1, 9, 20, 64)).astype(np.float32)).to(dev)
     convs = [torch.nn.Conv2d(64, 64, 3, padding=1).to(dev) for _ in range(2)]
     xs = x.clone().requires_grad_()
-    out = fused_rcu(xs, *convs)
-    assert out.grad_fn is not None
-    (out ** 2).sum().backward()
     xr = x.clone().requires_grad_()
     params = [p.detach().clone().requires_grad_() for conv in convs for p in conv.parameters()]
-    (rcu_reference(xr, *params) ** 2).sum().backward()
+    with ieee_convs():  # the kernel's backward recomputes its plain version's convolutions
+        out = fused_rcu(xs, *convs)
+        assert out.grad_fn is not None
+        (out ** 2).sum().backward()
+        (rcu_reference(xr, *params) ** 2).sum().backward()
     got = [xs.grad] + [p.grad for conv in convs for p in conv.parameters()]
     for a, r in zip(got, [xr.grad] + [p.grad for p in params]):
         assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
@@ -477,3 +490,133 @@ def test_channel_plane_kernels_match_plain_and_interleaved(monkeypatch, c, zeros
             assert (got[k] - want[k]).abs().max().item() <= WARP_TOL
         if img_grad:
             assert _rel(got[1], want[1]) <= ATOMIC_RTOL
+
+
+@pytest.mark.cuda
+def test_cli_model_path_holds_f32_without_a_global_switch():
+    """The CLI's model path (`build_depth_model` with the CLI's defaults:
+    vits, 224x280, unmerged dvlora) on the card against the CPU at 2e-4,
+    starting from PyTorch's defaults (cuDNN convolutions in TF32) inside a
+    local context: only the entry point's own f32 policy turns TF32 off."""
+    import copy
+
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.options import EndoDAVOptions
+
+    dev = _card()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=True):
+        cpu_model = engine.build_depth_model(EndoDAVOptions().parse(["--no_cuda"]),
+                                             torch.device("cpu"))
+        assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        rng = np.random.default_rng(0)
+        video = torch.from_numpy(rng.uniform(0.0, 1.0, (1, 8, 256, 320, 3)).astype(np.float32))
+        with torch.inference_mode():
+            want = cpu_model(video)
+            got = gpu_model(video.to(dev))
+        for s in range(4):
+            err = (got[("disp", s)].cpu() - want[("disp", s)]).abs().max().item()
+            assert np.isfinite(err) and err <= 2e-4, (s, err)
+
+
+def _block_args(dev, rows, t, c, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sd=0.2: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sd).astype(np.float32)).to(dev)
+    return [f(rows, t, c, sd=0.5), 1.0 + f(c, sd=0.1), f(c, sd=0.1), f(t, c),
+            *(f(c, c, sd=c ** -0.5) for _ in range(4)), f(c, sd=0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [5, 8, 32])
+@pytest.mark.parametrize("c", [64, 192, 256, 384])
+def test_temporal_block_below_512_on_the_tensor_cores(dtype, t, c):
+    """The C < 512 widths on the tensor-core route at 37 rows (a partial
+    last token tile at every T), against the plain version in its order
+    (`grouped_reference_block`) at TOL; one launch counted a call."""
+    from endodav_tpu_torch.kernels.fused_temporal_block import grouped_reference_block
+
+    dev = _card()
+    x, gamma, beta, pe, *ws, bo = _block_args(dev, 37, t, c, c + t)
+    args = [a.to(dtype) for a in (x, *ws, bo)]
+    want = grouped_reference_block(args[0].float(), gamma, beta, pe,
+                                   *(a.float() for a in args[1:5]), args[5].float(), 8)
+    before = fused_temporal_block.launches
+    got = fused_temporal_block(args[0], gamma, beta, pe, *args[1:5], args[5], 8)
+    torch.cuda.synchronize()
+    assert fused_temporal_block.launches == before + 1 and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 192, 256, 384])
+def test_temporal_block_below_512_gradient_matches_plain(c):
+    from endodav_tpu_torch.kernels.fused_temporal_block import grouped_reference_block
+
+    dev = _card()
+    args = _block_args(dev, 37, 8, c, c + 1)
+    g = torch.from_numpy(np.random.default_rng(c).standard_normal((37, 8, c))
+                         .astype(np.float32)).to(dev)
+    got_in = [a.clone().requires_grad_() for a in args]
+    out = fused_temporal_block(*got_in, 8)
+    assert out.grad_fn is not None
+    out.backward(g)
+    ref_in = [a.clone().requires_grad_() for a in args]
+    grouped_reference_block(*ref_in, 8).backward(g)
+    torch.cuda.synchronize()
+    for a, r in zip(got_in, ref_in):
+        assert (a.grad - r.grad).abs().max().item() <= 1e-4 * max(1.0, r.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 16, 32, 64])
+@pytest.mark.parametrize("dh", [8, 24, 32, 48, 128])
+def test_temporal_attention_warp_per_head_at_model_widths(dtype, t, dh):
+    """Every head width of the models' motion modules at T from 1 to 64,
+    37 rows of 8 heads, against the plain version at TOL, and its
+    gradient (f32)."""
+    from endodav_tpu_torch.kernels.temporal_attention import (temporal_attention,
+                                                              temporal_attention_reference)
+
+    dev = _card()
+    rng = np.random.default_rng(t * 1000 + dh)
+    qkv = [torch.from_numpy(rng.standard_normal((37, t, 8, dh)).astype(np.float32)).to(dev)
+           for _ in range(3)]
+    q, k, v = (a.to(dtype) for a in qkv)
+    want = temporal_attention_reference(q.float(), k.float(), v.float(), dh ** -0.5)
+    before = temporal_attention.launches
+    got = temporal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert temporal_attention.launches == before + 1 and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+    if dtype == torch.float32:
+        cot = torch.from_numpy(rng.standard_normal((37, t, 8, dh)).astype(np.float32)).to(dev)
+        got_in = [a.clone().requires_grad_() for a in qkv]
+        temporal_attention(*got_in).backward(cot)
+        ref_in = [a.clone().requires_grad_() for a in qkv]
+        temporal_attention_reference(*ref_in, dh ** -0.5).backward(cot)
+        for a, r in zip(got_in, ref_in):
+            assert ((a.grad - r.grad).abs().max().item()
+                    <= 1e-4 * max(1.0, r.grad.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 1024, 4096])
+def test_tile_promoted_order_within_half_the_f32_tolerance(k):
+    """The 3xTF32 tile in the kernels' accumulation order (a partial of
+    two k-steps promoted into the running sum) against a float64 product,
+    on signed and on same-sign operands: within half the f32 tolerance of
+    max(1, |ref|) up to fc2's K = 4096."""
+    from endodav_tpu_torch.bench.tile_error import tile_matmul
+
+    dev = _card()
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.standard_normal((256, k)).astype(np.float32)).to(dev)
+    b = torch.from_numpy((rng.standard_normal((k, 128)) * k ** -0.5).astype(np.float32)).to(dev)
+    for x, y in ((a, b), (a.abs(), b.abs())):
+        ref = x.double() @ y.double()
+        err = (tile_matmul(x, y).double() - ref).abs().max().item()
+        assert err <= TOL[torch.float32] / 2 * max(1.0, ref.abs().max().item())

@@ -3,6 +3,8 @@ JAX package on the CPU (Pallas in interpret mode, as tests/test_kernels.py
 runs it), the wrappers' dispatch rules, and the kernels against their
 plain versions on a CUDA card (`test_torch_port_cuda.py`)."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -12,7 +14,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from endodav_tpu_torch.kernels import _build
 from endodav_tpu_torch.kernels.flash_attention import attention_reference, qkv_attention
-from endodav_tpu_torch.kernels.fused_temporal_block import fused_temporal_block, rows_per_block
+from endodav_tpu_torch.kernels.fused_temporal_block import fused_temporal_block, tile_config
 
 torch.set_num_threads(1)
 
@@ -107,20 +109,20 @@ def test_cuda_call_without_toolkit_raises(monkeypatch, tmp_path):
 
 
 def test_temporal_block_wide_channels_reach_grouped_launcher(monkeypatch, tmp_path):
-    """vitl's C=1024 goes to the head-grouped kernel's launcher (the
-    ungrouped layout exceeds a Hopper block's shared memory); without nvcc
-    it raises there and counts no launch."""
+    """vitl's C=1024 goes to the tensor-core route's launcher in column
+    tiles of 256, one head a K step; without nvcc it raises there and
+    counts no launch."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; test_torch_port_cuda.py covers it")
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from endodav_tpu_torch.kernels import fused_temporal_block as ftb
 
-    assert rows_per_block(32, 64) == 2 and rows_per_block(32, 384) == 1
+    assert tile_config(1024, 8, torch.float32) == tile_config(1024, 8, torch.bfloat16) == (256, 1)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "_lib", None)
-    before = (fused_temporal_block.launches, ftb.launch_grouped.launches)
+    before = fused_temporal_block.launches
     with FakeTensorMode():
         c, t = 1024, 32
         vec = torch.empty(c, device="cuda")
@@ -128,5 +130,91 @@ def test_temporal_block_wide_channels_reach_grouped_launcher(monkeypatch, tmp_pa
         with pytest.raises(RuntimeError, match="nvcc") as err:
             fused_temporal_block(torch.empty(4, t, c, device="cuda"), vec, vec,
                                  torch.empty(t, c, device="cuda"), w, w, w, w, vec, 8)
-    assert any(entry.name == "launch_grouped" for entry in err.traceback)
-    assert (fused_temporal_block.launches, ftb.launch_grouped.launches) == before
+    assert any(entry.name == "_launch" for entry in err.traceback)
+    assert fused_temporal_block.launches == before
+
+
+class _FakeLibrary:
+    """Stands in for the kernels' shared library: records each call's
+    arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The wrappers reach a `_FakeLibrary` through fake CUDA tensors."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; test_torch_port_cuda.py launches the kernels")
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    return lib
+
+
+# every width the models build a motion module at: vits 64 (path_3/4), 192
+# (layer_3), 384 (layer_4); vitl 256 (path_*) and 1024; -> (bn, hs) in f32
+# and bf16 (16 and 32 columns a 64-byte stage)
+WIDTHS = {64: ((64, 2), (64, 4)), 192: ((192, 2), (192, 4)), 256: ((256, 1), (256, 1)),
+          384: ((192, 1), (192, 2)), 1024: ((256, 1), (256, 1))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", list(WIDTHS))
+def test_temporal_block_routes_every_width_to_the_tensor_cores(fake_library, monkeypatch, c,
+                                                                 dtype):
+    """Every C the models build takes the one tensor-core route: one call
+    of `endodav_fused_temporal_block` with the tiles of `tile_config` and
+    one launch counted (the weight planes, which need a card to make, are
+    the K-major views here; test_torch_tf32x3.py covers them)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from endodav_tpu_torch.kernels import fused_temporal_block as ftb
+
+    monkeypatch.setattr(ftb, "kmajor_planes", lambda cache, w: (w.t(), w.t()))
+    want = WIDTHS[c][dtype == torch.bfloat16]
+    assert tile_config(c, 8, dtype) == want
+    before = fused_temporal_block.launches
+    with FakeTensorMode():
+        t, rows = 32, 3
+        vec = torch.empty(c, device="cuda")
+        w = torch.empty(c, c, device="cuda", dtype=dtype)
+        out = fused_temporal_block(torch.empty(rows, t, c, device="cuda", dtype=dtype), vec, vec,
+                                   torch.empty(t, c, device="cuda"), w, w, w, w,
+                                   torch.empty(c, device="cuda", dtype=dtype), 8)
+        assert out.shape == (rows, t, c) and out.dtype == dtype
+    (name, args), = fake_library.calls
+    assert name == "endodav_fused_temporal_block"
+    assert args[0] == _build.DTYPE_CODES[dtype] and args[16:22] == (rows, t, c, 8, *want)
+    assert args[22] == pytest.approx((c // 8) ** -0.5)
+    assert fused_temporal_block.launches == before + 1
+
+
+@pytest.mark.parametrize("t,dh,wpb", [(16, 8, 4), (32, 24, 4), (32, 48, 4), (32, 128, 4),
+                                      (64, 128, 2), (5, 3, 4)])
+def test_temporal_attention_launch_configuration(fake_library, t, dh, wpb):
+    """One warp a (row, head), up to four a block while their shared
+    memory fits a Hopper block; the kernel gets the warps a block and
+    counts one launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from endodav_tpu_torch.kernels.temporal_attention import (temporal_attention, warp_bytes,
+                                                              warps_per_block)
+
+    assert warps_per_block(t, dh) == wpb and wpb * warp_bytes(t, dh) <= 232448
+    before = temporal_attention.launches
+    with FakeTensorMode():
+        q = torch.empty(7, t, 8, dh, device="cuda")
+        out = temporal_attention(q, q, q)
+        assert out.shape == q.shape
+    (name, args), = fake_library.calls
+    assert name == "endodav_temporal_attention" and args[5:10] == (7, t, 8, dh, wpb)
+    assert temporal_attention.launches == before + 1

@@ -1,8 +1,10 @@
 """The 3xTF32 route of the tensor-core kernels on the CPU: the TF32 split
 against a numpy model of `cvt.rna.tf32.f32`, a plain emulation of the
 kernels' three-pass product against float64 (and one TF32 pass, which
-the f32 tolerance tells apart), the weight-plane cache, the weight
-layouts the two wrappers take, and the widths they route."""
+the f32 tolerance tells apart), a numpy model of the tensor core's
+accumulation in both orders of `csrc/tc_tile.cuh`, the weight-plane
+cache, the weight layouts the two wrappers take, and the widths they
+route."""
 
 import numpy as np
 import pytest
@@ -11,8 +13,8 @@ import torch
 from endodav_tpu_torch.kernels import _build
 from endodav_tpu_torch.kernels import fused_temporal_block as ftb
 from endodav_tpu_torch.kernels.fused_mlp import fused_mlp, mlp_config
-from endodav_tpu_torch.kernels.tf32x3 import (PlaneCache, check_layout, jax_layout,
-                                              kmajor_planes, split_tf32, tf32x3_matmul)
+from endodav_tpu_torch.kernels.tf32x3 import (PlaneCache, check_layout, kmajor_planes, split_tf32,
+                                              tf32x3_matmul)
 
 torch.set_num_threads(1)
 
@@ -85,6 +87,71 @@ def test_three_pass_product_keeps_f32_accuracy(k, n):
     assert one > F32_TOL
 
 
+def _cut_to_f32(s: np.ndarray) -> np.ndarray:
+    """float64 -> f32 rounded toward zero."""
+    r = s.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(s)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _mma_model(acc: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """One m16n8k8 TF32 pass as a tensor core adds it to acc: the products
+    of TF32 values exact, every addend (acc among them) aligned to the
+    largest one's exponent with the bits below f32 precision cut toward
+    zero, the sum cut toward zero to f32.  a [M, 8], b [8, N] hold TF32
+    values; acc [M, N] f32."""
+    terms = a.astype(np.float64)[:, None, :] * b.astype(np.float64).T[None, :, :]
+    addends = np.concatenate([acc.astype(np.float64)[..., None], terms], -1)
+    top = np.abs(addends).max(-1, keepdims=True)
+    quantum = np.exp2(np.floor(np.log2(np.where(top > 0, top, 1.0))) - 23)
+    return _cut_to_f32((np.trunc(addends / quantum) * quantum).sum(-1))
+
+
+def _tile_model(a: np.ndarray, b: np.ndarray, steps: int) -> np.ndarray:
+    """a @ b in the warp tile's order: per k-step of 8 the passes a_lo*b_hi,
+    a_hi*b_lo, a_hi*b_hi, either straight into the running sum (steps=0,
+    the order before the repair) or into a partial from zero that is added
+    to the running sum, rounded to nearest, every `steps` k-steps (2: the
+    kernels' order, csrc/tc_tile.cuh)."""
+    (ahi, alo), (bhi, blo) = ((_rna_model(x), _rna_model(x - _rna_model(x))) for x in (a, b))
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    part = np.zeros_like(acc)
+    for i, k0 in enumerate(range(0, a.shape[1], 8)):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((alo[:, ks], bhi[ks]), (ahi[:, ks], blo[ks]), (ahi[:, ks], bhi[ks])):
+            if steps:
+                part = _mma_model(part, x, y)
+            else:
+                acc = _mma_model(acc, x, y)
+        if steps and (i + 1) % steps == 0:
+            acc = (acc.astype(np.float64) + part).astype(np.float32)
+            part = np.zeros_like(acc)
+    return acc
+
+
+@pytest.mark.parametrize("dist", ["signed", "positive"])
+def test_promoted_accumulation_keeps_f32_accuracy_at_k4096(dist):
+    """The tile's order (a partial of two k-steps promoted into the running
+    sum), modelled with the tensor core's cuts toward zero, stays within
+    half the kernels' f32 tolerance of float64 at fc2's K = 4096; on
+    same-sign data, where every cut has one sign, the direct order's error
+    is many times larger."""
+    rng = np.random.default_rng(4096)
+    k = 4096
+    a = rng.standard_normal((16, k)).astype(np.float32)
+    b = (rng.standard_normal((k, 16)) * k ** -0.5).astype(np.float32)
+    if dist == "positive":
+        a, b = np.abs(a), np.abs(b)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    scale = max(1.0, np.abs(ref).max())
+    promoted = np.abs(_tile_model(a, b, 2) - ref).max() / scale
+    direct = np.abs(_tile_model(a, b, 0) - ref).max() / scale
+    assert promoted <= F32_TOL / 2
+    if dist == "positive":
+        assert direct > 10 * promoted
+
+
 def test_plane_cache_hits_for_the_same_view_and_splits_after_an_update():
     lin = torch.nn.Linear(64, 96)
     cache = PlaneCache()
@@ -137,10 +204,6 @@ def test_layouts_taken_and_refused():
     for bad in (w[:, ::2], w[::2], torch.randn(4, 48, 32)[1:3, 0], torch.randn(8)):
         with pytest.raises(ValueError, match="contiguous or the transpose"):
             check_layout(bad, "w")
-    cache = PlaneCache()
-    assert jax_layout(cache, w) is w
-    copy = jax_layout(cache, w.t())
-    assert copy.is_contiguous() and torch.equal(copy, w.t()) and jax_layout(cache, w.t()) is copy
 
 
 @pytest.mark.parametrize("c,h,c2,want", [(384, 1536, 384, (2, 128)), (1024, 4096, 1024, (4, 128)),
@@ -173,7 +236,7 @@ def test_wrappers_take_transposed_views(monkeypatch, tmp_path, view):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     _no_toolkit(monkeypatch, tmp_path)
-    before = (fused_mlp.launches, ftb.fused_temporal_block.launches, ftb.launch_grouped.launches)
+    before = (fused_mlp.launches, ftb.fused_temporal_block.launches)
     with FakeTensorMode():
         w = (lambda i, o: torch.empty(i, o, device="cuda") if view == "contiguous"  # noqa: E731
              else torch.empty(o, i, device="cuda").t())
@@ -186,8 +249,7 @@ def test_wrappers_take_transposed_views(monkeypatch, tmp_path, view):
                 ftb.fused_temporal_block(torch.empty(2, t, c, device="cuda"), b(c), b(c),
                                          torch.empty(t, c, device="cuda"), w(c, c), w(c, c),
                                          w(c, c), w(c, c), b(c), 8)
-    assert (fused_mlp.launches, ftb.fused_temporal_block.launches,
-            ftb.launch_grouped.launches) == before
+    assert (fused_mlp.launches, ftb.fused_temporal_block.launches) == before
 
 
 def test_wrappers_refuse_other_strides(monkeypatch, tmp_path):
@@ -213,8 +275,9 @@ def test_wrappers_refuse_other_strides(monkeypatch, tmp_path):
 
 
 def test_grouped_route_refuses_widths_it_cannot_tile(monkeypatch, tmp_path):
-    """C >= 512 but not a multiple of 256, or heads wider than 128: raises
-    (nothing falls back to another kernel or the plain version)."""
+    """C=640 (column tiles of 64 would make a cluster of 10) or heads
+    wider than 128: raises (nothing falls back to another kernel or the
+    plain version)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     _no_toolkit(monkeypatch, tmp_path)
