@@ -11,12 +11,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against a float64 product as K grows, held to half the f32 tolerance;
      each kernel against its plain PyTorch version on the card, at the
      shapes of the serving path and of the training step: flash attention
-     (f32, bf16, and its gradient), the fused temporal block at every
-     motion-module width (vits C=64, 192, 384; vitl C=256 and 1024) in f32
-     and bf16, the fused MLP at vits and vitl widths (these two on the
-     tensor cores, f32 as 3xTF32: both bounds, the rate reached and the
-     temporal block's two launches),
-     the fused RCU at the vits head's shapes, the temporal attention at
+     (f32, bf16, and its gradient; f32 also against float64), the fused
+     temporal block at every motion-module width (vits C=64, 192, 384;
+     vitl C=256 and 1024) in f32 and bf16, the fused MLP at vits and vitl
+     widths, the fused RCU at the vits head's shapes (these four on the
+     tensor cores, f32 as 3xTF32: both bounds, the rate reached, and the
+     temporal block's two launches), the temporal attention at
      the training step's and a 518x644 window's shapes, vitl's head
      widths 32 and 128 among them (and its gradient), the int8 serving
      GEMM (`int8_dense`); the grid-sample forward and both backward
@@ -308,6 +308,15 @@ def device_ms_by_kernel(fn, iters: int = 3) -> dict | None:
     return found or None
 
 
+def attention64(qkv, heads):
+    """Attention of a packed [B, N, 3C] qkv in float64, [B, N, C]."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = (qkv.double()[..., i * c:(i + 1) * c].reshape(b, n, heads, -1) for i in range(3))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * (c // heads) ** -0.5, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, n, c)
+
+
 def check_flash(device, shapes=FLASH_SHAPES, dh=64, timing=True):
     from endodav_tpu_torch.kernels.flash_attention import attention_reference, qkv_attention
 
@@ -337,8 +346,13 @@ def check_flash(device, shapes=FLASH_SHAPES, dh=64, timing=True):
                         qh, kh, vh, scale=dh ** -0.5)})
                 row["ms"], row["plain_ms"], row["library_ms"] = t["kernel"], t["plain"], t["library"]
                 # read qkv once, write the output once; QK^T and PV
-                row["bound_ms"], row["bound_by"] = bound(
-                    x.element_size() * b * n * 4 * c, 4.0 * b * heads * n * n * dh, dtype)
+                tensor_core_bounds(row, x.element_size() * b * n * 4 * c,
+                                   4.0 * b * heads * n * n * dh, dtype)
+            if dtype == torch.float32:
+                # against float64: the tensor-core partials' accumulation order
+                row["err_f64"] = max(
+                    (got[i:i + 8].double() - attention64(qkv[i:i + 8], heads)).abs().max().item()
+                    for i in range(0, b, 8))
             print(f"[flash_attention] {row}")
             require(err <= TOL[dtype], f"flash_attention {row}: max |err| above {TOL[dtype]}")
             rows.append(row)
@@ -800,8 +814,8 @@ def check_fused_rcu(device, shapes=RCU_SHAPES, c=64, timing=True):
                                                                  t_["library"])
                 # x read and the output written once, the two tap sets and
                 # biases once; two 3x3 convolutions a pixel
-                row["bound_ms"], row["bound_by"] = bound(
-                    xd.element_size() * (2 * b * h * w * c + 2 * 9 * c * c) + 2 * 4 * c,
+                tensor_core_bounds(
+                    row, xd.element_size() * (2 * b * h * w * c + 2 * 9 * c * c) + 2 * 4 * c,
                     2.0 * b * h * w * 2 * 9 * c * c, dtype)
             print(f"[fused_rcu] {row}")
             require(err <= tol, f"fused_rcu {row}: max |err| above {tol}")

@@ -4,10 +4,13 @@ kernels.
 
     python3 endodav_tpu_torch/bench/ab_kernels.py DIR_A DIR_B [--phases temporal,mlp,tattn]
 
+Phases: temporal, mlp, tattn, flash, rcu (comma-separated).
+
 Each run is a fresh process started in the checkout's directory: it
 imports that checkout's `chip_smoke.py` (and so its kernels, built there
 on first use), runs the chosen phases (`check_temporal`,
-`check_fused_mlp`, `check_temporal_attention`) with TF32 off for the
+`check_fused_mlp`, `check_temporal_attention`, `check_flash`,
+`check_fused_rcu`) with TF32 off for the
 library yardsticks, as that `chip_smoke.py` runs them (its `ieee_f32()`
 context, or the process's switches where it has none), and prints each
 row as JSON.  The last lines
@@ -26,7 +29,7 @@ import subprocess
 import sys
 
 PHASES = {"temporal": "check_temporal", "mlp": "check_fused_mlp",
-          "tattn": "check_temporal_attention"}
+          "tattn": "check_temporal_attention", "flash": "check_flash", "rcu": "check_fused_rcu"}
 
 RUN = """
 import contextlib, json, sys, torch

@@ -30,8 +30,9 @@
 // rate (165 TFLOP/s) is 2.5x the f32 SIMT rate of 67, and mma.sync at
 // half the tensor-core rate already passes cuBLAS's f32 sgemm; mma.sync
 // takes A from registers, where the split happens, and any warp layout,
-// so one tile serves the fused MLP's two products and the temporal
-// block's projections.  wgmma would need the split A in shared memory
+// so one tile serves the fused MLP's two products, the temporal block's
+// projections and the fused RCU's taps (flash attention uses the same
+// primitives with its own fragment order).  wgmma would need the split A in shared memory
 // (a second pass over every A tile) and 64-row warpgroup tiles.
 //
 // Fragments come from shared memory by ldmatrix, in either of two tile
@@ -95,6 +96,22 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
                : "r"(s));
 }
 
+// The same, transposed (ldmatrix.trans, 16-bit data only): a lane receives
+// elements (2*(lane%4), lane/4) and (2*(lane%4)+1, lane/4) of each matrix,
+// packed: the B fragment of a [k][n] tile stored row-major.
+__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// hi and lo TF32 halves of an f32 value (the 3xTF32 split)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
 // Shared-memory tile layouts: element (row, col) of a tile.  Padded: rows
 // of `ld` elements.  Swizzled: rows of ROWB (128 or 64) bytes whose
 // 16-byte chunks are XOR-ed with bits 7-9 (or 7-8) of their byte offset,
@@ -112,6 +129,52 @@ template <typename E, int ROWB = 128> struct Swizzled {
   }
 };
 
+// The B side of KS promoted f32 k-steps at k0: acc[mt][nt] += the
+// partial of the k-steps' 3xTF32 passes (A's hi and lo fragments given),
+// the partial started from zero and added rounded to nearest.
+template <int KS, int MT, int NT, typename LB>
+__device__ __forceinline__ void promoted_steps(float (&acc)[MT][NT][4],
+                                               const uint32_t (&ahi)[KS][MT][4],
+                                               const uint32_t (&alo)[KS][MT][4], const float* bh,
+                                               const float* bl, LB lb, int k0) {
+  const int lane = threadIdx.x & 31;
+  const int rb = lane % 8 + 8 * (lane / 16), cb = 4 * ((lane / 8) % 2);
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t hi[KS][4], lo[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int off = lb.at(np * 16 + rb, k0 + 8 * ks + cb);
+      ldsm4(hi[ks], bh + off);
+      ldsm4(lo[ks], bl + off);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int nt = 2 * np + j;
+      // pass-major: MT independent products between two on one partial
+      float part[MT][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t bhi[2] = {hi[ks][2 * j], hi[ks][2 * j + 1]};
+        const uint32_t blo[2] = {lo[ks][2 * j], lo[ks][2 * j + 1]};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (ks == 0) mma_tf32_zero(part[mt], alo[ks][mt], bhi);
+          else mma_tf32(part[mt], alo[ks][mt], bhi);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_tf32(part[mt], ahi[ks][mt], blo);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_tf32(part[mt], ahi[ks][mt], bhi);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][nt][c] = __fadd_rn(acc[mt][nt][c], part[mt][c]);
+    }
+  }
+}
+
 // acc[mt][nt] += A[mt*16.., 0:kdim] * B[nt*8.., 0:kdim]^T for one warp:
 // A at `a` in layout la, B at `bh` (and `bl`, the lo plane, for f32;
 // ignored for bf16) in layout lb.  kdim is a multiple of 16, NT is even.
@@ -127,7 +190,6 @@ __device__ __forceinline__ void warp_tile(float (&acc)[MT][NT][4], const float* 
   constexpr int KS = 2;  // k-steps a partial
   const int lane = threadIdx.x & 31;
   const int ra = lane % 8 + 8 * ((lane / 8) % 2), ca = 4 * (lane / 16);
-  const int rb = lane % 8 + 8 * (lane / 16), cb = 4 * ((lane / 8) % 2);
 #pragma unroll 1
   for (int k0 = 0; k0 < kdim; k0 += 8 * KS) {
     uint32_t ahi[KS][MT][4], alo[KS][MT][4];
@@ -138,45 +200,36 @@ __device__ __forceinline__ void warp_tile(float (&acc)[MT][NT][4], const float* 
         uint32_t v[4];
         ldsm4(v, a + la.at(mt * 16 + ra, k0 + 8 * ks + ca));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ahi[ks][mt][i] = tf32_rna(__uint_as_float(v[i]));
-          alo[ks][mt][i] = tf32_rna(__uint_as_float(v[i]) - __uint_as_float(ahi[ks][mt][i]));
-        }
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(v[i]), ahi[ks][mt][i], alo[ks][mt][i]);
       }
+    promoted_steps(acc, ahi, alo, bh, bl, lb, k0);
+  }
+}
+
+// The same, f32, with A already split: its hi and lo planes at `ah` and
+// `al`, in the one layout la (an A tile that many warps read is split once
+// where it is written, not by every warp at every read); KS k-steps a
+// partial, kdim a multiple of 8*KS.
+template <int KS, int MT, int NT, typename LA, typename LB>
+__device__ __forceinline__ void warp_tile_planes(float (&acc)[MT][NT][4], const float* ah,
+                                                 const float* al, LA la, const float* bh,
+                                                 const float* bl, LB lb, int kdim) {
+  static_assert(NT % 2 == 0, "B fragments come in pairs of n-tiles");
+  const int lane = threadIdx.x & 31;
+  const int ra = lane % 8 + 8 * ((lane / 8) % 2), ca = 4 * (lane / 16);
+#pragma unroll 1
+  for (int k0 = 0; k0 < kdim; k0 += 8 * KS) {
+    uint32_t ahi[KS][MT][4], alo[KS][MT][4];
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t hi[KS][4], lo[KS][4];
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int off = lb.at(np * 16 + rb, k0 + 8 * ks + cb);
-        ldsm4(hi[ks], bh + off);
-        ldsm4(lo[ks], bl + off);
+      for (int mt = 0; mt < MT; ++mt) {
+        const int off = la.at(mt * 16 + ra, k0 + 8 * ks + ca);
+        ldsm4(ahi[ks][mt], ah + off);
+        ldsm4(alo[ks][mt], al + off);
       }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int nt = 2 * np + j;
-        // pass-major: MT independent products between two on one partial
-        float part[MT][4];
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const uint32_t bhi[2] = {hi[ks][2 * j], hi[ks][2 * j + 1]};
-          const uint32_t blo[2] = {lo[ks][2 * j], lo[ks][2 * j + 1]};
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            if (ks == 0) mma_tf32_zero(part[mt], alo[ks][mt], bhi);
-            else mma_tf32(part[mt], alo[ks][mt], bhi);
-          }
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_tf32(part[mt], ahi[ks][mt], blo);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_tf32(part[mt], ahi[ks][mt], bhi);
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[mt][nt][c] = __fadd_rn(acc[mt][nt][c], part[mt][c]);
-      }
-    }
+    promoted_steps(acc, ahi, alo, bh, bl, lb, k0);
   }
 }
 

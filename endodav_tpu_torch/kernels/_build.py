@@ -51,7 +51,7 @@ _SIGNATURES = {
     "endodav_grid_sample_bwd": ([_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
                                  _int, _int, _int, _int, _vp], _int),
     "endodav_splat": ([_vp, _vp, _vp, _int, _int, _int, _int, _vp], _int),
-    "endodav_fused_rcu": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp], _int),
+    "endodav_fused_rcu": ([_int, *[_vp] * 8, _int, _int, _int, _int, _vp], _int),
     "endodav_temporal_attention": ([_int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                                     _f, _vp], _int),
 }

@@ -6,6 +6,9 @@ Port of `endodav_tpu/kernels/flash_attention.py` (the Pallas
 by side.  On a CUDA tensor it launches `csrc/flash_attention.cu`, which
 reads q, k and v as strided views of the packed tensor; on a CPU tensor
 it runs `attention_reference`, the port of the JAX `_xla_attention`.
+The kernel runs both products on the tensor cores (f32 as 3xTF32, bf16
+as it is); `tf32x3_attention` is a plain emulation of its f32 arithmetic
+for the tests, which nothing on the main path calls.
 On the card the kernel sits in `_QKVAttention`, whose backward is a
 plain-PyTorch recompute of JAX's `_bwd` (flash_attention.py:225-249: the
 scores are rebuilt from q and k, no Pallas backward kernel exists) and
@@ -17,10 +20,16 @@ from __future__ import annotations
 import torch
 
 from endodav_tpu_torch.kernels import _build
+from endodav_tpu_torch.kernels.tf32x3 import tf32x3_matmul
 
-__all__ = ["attention_reference", "attention_backward", "qkv_attention"]
+__all__ = ["attention_reference", "attention_backward", "qkv_attention", "tf32x3_attention"]
 
 HEAD_DIM = 64  # the one head width the kernel is built for (vits, vitl)
+KEY_TILE = 64  # keys a shared-memory tile of the kernel
+# the kernel's k-slot order of a tf32 k-step's 8 keys: the accumulator
+# fragment of S holds keys 2t and 2t+1 of lane t, which P V takes in
+# k-slots t and t+4
+SLOT_KEYS = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,6 +40,36 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits * scale, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(q.dtype)
+
+
+def tf32x3_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """Plain emulation of the kernel's f32 arithmetic over [B, N, H, Dh]
+    (f32): q scaled, q, k, P and V split to TF32 (`split_tf32`), the keys
+    in tiles of 64 with an online softmax, each tile's P V summed from
+    zero with its keys in the kernel's k-slot order and added to the
+    rescaled output.  Returns [B, N, H, Dh]."""
+    b, n, h, dh = q.shape
+    qs = (q.float() * scale).permute(0, 2, 1, 3)
+    kt, vt = (x.float().permute(0, 2, 1, 3) for x in (k, v))
+    pad = -n % KEY_TILE
+    kt, vt = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (kt, vt))
+    order = torch.tensor(SLOT_KEYS)
+    m = torch.full((b, h, n, 1), float("-inf"))
+    l = torch.zeros((b, h, n, 1))
+    o = torch.zeros((b, h, n, dh))
+    for k0 in range(0, n, KEY_TILE):
+        s = tf32x3_matmul(qs, kt[:, :, k0:k0 + KEY_TILE].transpose(-1, -2))
+        keys = torch.arange(k0, k0 + KEY_TILE)
+        s = s.masked_fill(keys >= n, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        slots = (torch.arange(0, KEY_TILE, 8)[:, None] + order).reshape(-1)
+        o = o * alpha + tf32x3_matmul(p[..., slots], vt[:, :, k0:k0 + KEY_TILE][:, :, slots])
+        m = m_new
+    return (o / l).permute(0, 2, 1, 3)
 
 
 def attention_backward(q, k, v, g, scale: float):
@@ -98,6 +137,11 @@ def _launch(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
         raise ValueError(f"qkv_attention: qkv must have unit column stride and "
                          f"non-overlapping rows, got strides {qkv.stride()}")
     lib = _build.library()
+    esize = qkv.element_size()
+    if qkv.data_ptr() % 16 or (qkv.stride(1) * esize) % 16 or (qkv.stride(0) * esize) % 16:
+        raise ValueError(f"qkv_attention: qkv must start 16-byte aligned with 16-byte aligned "
+                         f"row and batch strides (the kernel copies 16-byte vectors), got "
+                         f"strides {qkv.stride()}")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     # q, k and v are the column blocks 0, C and 2C of each packed row
     base, step = qkv.data_ptr(), c * qkv.element_size()

@@ -47,7 +47,7 @@ def split_tf32(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain emulation of the kernels' 3xTF32 product a [M, K] @ b [K, N]:
+    """Plain emulation of the kernels' 3xTF32 product a [..., M, K] @ b [..., K, N]:
     the two small cross terms first, then hi·hi, each product of TF32
     values summed in f32."""
     (ahi, alo), (bhi, blo) = split_tf32(a), split_tf32(b)

@@ -108,12 +108,17 @@ def test_fused_rcu_gradient_matches_jax(monkeypatch):
 
 def test_kernel_taps_layout():
     """kernel_taps puts the torch weight's tap (ky, kx) for input ci and
-    output co at [3*ky + kx, ci, co], the TPU kernel's [9C, C] panel rows."""
+    output co at [3*ky + kx, co, ci]: K-major taps, the tensor-core
+    kernel's B operand (tap 3*ky + kx as the TPU kernel's [9C, C] panels),
+    zero past C when padded to the kernel's width."""
     w = torch.arange(4 * 4 * 9, dtype=torch.float32).reshape(4, 4, 3, 3)
     taps = fr.kernel_taps(w, torch.bfloat16)
     assert taps.shape == (9, 4, 4) and taps.dtype == torch.bfloat16 and taps.is_contiguous()
     for ky, kx, ci, co in ((0, 0, 0, 0), (2, 1, 3, 0), (1, 2, 0, 3)):
-        assert taps[3 * ky + kx, ci, co] == w[co, ci, ky, kx].to(torch.bfloat16)
+        assert taps[3 * ky + kx, co, ci] == w[co, ci, ky, kx].to(torch.bfloat16)
+    padded = fr.kernel_taps(w, torch.float32, 16)
+    assert padded.shape == (9, 16, 16) and torch.equal(padded[:, :4, :4], taps.float())
+    assert padded[:, 4:].abs().sum() == 0 and padded[:, :, 4:].abs().sum() == 0
 
 
 class _TpuBackendJax:

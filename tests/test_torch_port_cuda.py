@@ -620,3 +620,92 @@ def test_tile_promoted_order_within_half_the_f32_tolerance(k):
         ref = x.double() @ y.double()
         err = (tile_matmul(x, y).double() - ref).abs().max().item()
         assert err <= TOL[torch.float32] / 2 * max(1.0, ref.abs().max().item())
+
+
+def _attention64(qkv, heads):
+    """Attention of a packed [B, N, 3C] qkv in float64, [B, N, C]."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = (qkv.double()[..., i * c:(i + 1) * c].reshape(b, n, heads, -1) for i in range(3))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * (c // heads) ** -0.5, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, n, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [321, 1703])
+@pytest.mark.parametrize("heads", [6, 16])
+def test_flash_attention_tensor_cores_at_model_shapes(dtype, n, heads):
+    """The tensor-core kernel at the ViT's token counts (N=321 ends in a
+    one-key tile, 1703 = 26*64 + 39) and head counts (vits 6, vitl 16)
+    against its plain version, one launch a call; f32 also within a tenth
+    of its tolerance of float64 (the partials' accumulation order)."""
+    dev = _card()
+    b, c = 2, heads * 64
+    rng = np.random.default_rng(n + heads)
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * c)).astype(np.float32)).to(dev)
+    qkv = qkv.to(dtype)
+    want = attention_reference(*(qkv.float()[..., i * c:(i + 1) * c].reshape(b, n, heads, 64)
+                                 for i in range(3)), 0.125).reshape(b, n, c)
+    before = qkv_attention.launches
+    got = qkv_attention(qkv, heads)
+    torch.cuda.synchronize()
+    assert qkv_attention.launches == before + 1 and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+    if dtype == torch.float32:
+        assert (got.double() - _attention64(qkv, heads)).abs().max().item() <= TOL[dtype] / 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_a_qkv_view_with_a_wider_row(dtype):
+    """q, k and v read from a view whose row stride is above 3C (the
+    projection's columns inside a wider buffer), as from a contiguous
+    copy; a view the kernel cannot copy in 16-byte vectors raises."""
+    dev = _card()
+    b, n, heads = 2, 200, 6
+    c = heads * 64
+    rng = np.random.default_rng(9)
+    wide = torch.from_numpy(rng.standard_normal((b, n, 3 * c + 64)).astype(np.float32))
+    wide = wide.to(dev).to(dtype)
+    view = wide[..., 32:32 + 3 * c]
+    assert view.stride(1) == 3 * c + 64
+    got = qkv_attention(view, heads)
+    want = qkv_attention(view.contiguous(), heads)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() == 0.0
+    with pytest.raises(ValueError, match="16-byte"):
+        qkv_attention(wide[..., 1:1 + 3 * c], heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c", [(19, 23, 64), (37, 46, 64), (74, 92, 64), (148, 184, 64),
+                                   (64, 80, 64), (13, 21, 4), (9, 17, 36), (10, 30, 128)])
+def test_fused_rcu_tensor_cores_at_head_shapes(dtype, h, w, c):
+    """The implicit-GEMM kernel at the vits head's RCU sizes (two frames of
+    each), at C=4 and 36 (channels zero-padded to 16 and 64 in the kernel)
+    and C=128, against its plain version, one launch a call; the second
+    call reuses the weights' tap planes."""
+    from endodav_tpu_torch.kernels.fused_rcu import fused_rcu, rcu_reference
+
+    dev = _card()
+    rng = np.random.default_rng(h * w + c)
+    x = torch.from_numpy(rng.standard_normal((2, h, w, c)).astype(np.float32)).to(dev).to(dtype)
+    convs = [torch.nn.Conv2d(c, c, 3, padding=1).to(dev) for _ in range(2)]
+    with torch.no_grad():
+        for conv in convs:
+            conv.weight.copy_(torch.from_numpy(
+                (rng.standard_normal(tuple(conv.weight.shape)) * (9 * c) ** -0.5)
+                .astype(np.float32)))
+        wq = [conv.weight.to(dtype).float() for conv in convs]
+        with ieee_convs():
+            want = rcu_reference(x.float(), wq[0], convs[0].bias, wq[1], convs[1].bias)
+        before = fused_rcu.launches
+        got = fused_rcu(x, *convs)
+        hits = fused_rcu.planes.hits
+        again = fused_rcu(x, *convs)
+    torch.cuda.synchronize()
+    assert fused_rcu.launches == before + 2 and got.dtype == dtype
+    assert fused_rcu.planes.hits == hits + 2 and torch.equal(got, again)
+    assert (got.float() - want).abs().max().item() <= TOL[dtype] * max(1.0, want.abs().max())
