@@ -20,8 +20,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the training step's and a 518x644 window's shapes, vitl's head
      widths 32 and 128 among them (and its gradient), the int8 serving
      GEMM (`int8_dense`); the grid-sample forward and both backward
-     kernels at the four warp calls of the training step, their
-     channel-plane twins at the C > 1 calls
+     kernels at the four warp calls of the training step (and the share
+     of the fused backward's tiles whose d_img box fits shared memory,
+     the kernel's count held to the plain box rule), the fused backward
+     on displacements that force its global-atomics branch in half its
+     tiles, their channel-plane twins at the C > 1 calls
      (also against the interleaved kernels), and the forward splat; with
      the kernel's, the plain version's and one PyTorch call's times.  The
      plain versions and the PyTorch calls of these phases run in IEEE f32
@@ -60,7 +63,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      synthetic SCARED tree written from the seed, 4 steps of
      `train_one_batch` and 2 more with ENDODAV_WARP_CP=1, with finite
      losses, the expected parameter changes and the expected launches of
-     every kernel per step; ms/step and the peak memory;
+     every kernel per step, and the share of the depth warps' tiles that
+     summed d_img in shared memory (the kernel's count); ms/step and the
+     peak memory;
   9. a JSON line per kernel and, last, the device line.
 
 ``--profile-step TRACE_DIR`` adds a `torch.profiler` run of one more
@@ -605,11 +610,24 @@ WARP_CALLS = [("colour synthesis", 32, 3, 4, False, True, False),
               ("depth warps", 240, 1, 1, True, True, True)]
 
 
+def kernel_fit_share(fused, row) -> float:
+    """The share of the last fused-backward launch's tiles that summed d_img
+    in shared memory, from the kernel's own count of the others; required to
+    be the plain box rule's share (``row["fit_share"]``)."""
+    glob, tiles = fused.global_blocks(), fused.last_tiles
+    share = 1 - glob / tiles
+    require(glob == round((1 - row["fit_share"]) * tiles),
+            f"{row.get('call', 'fused backward')}: {glob} of {tiles} tiles took global atomics, "
+            f"the box rule gives a fit share of {row['fit_share']}")
+    return share
+
+
 def check_warps(device, hw=TRAIN_HW):
     """Each warp kernel against its plain version at the training step's
     shapes: the forward, every gradient, the times of the kernel, the plain
     version and one PyTorch call (F.grid_sample forward, aten's
-    grid_sampler_2d_backward), and the bound."""
+    grid_sampler_2d_backward), the bound, and the share of the fused
+    backward's tiles whose d_img box fits shared memory."""
     import torch.nn.functional as F
 
     from endodav_tpu_torch.kernels import warp_matmul as W
@@ -639,11 +657,15 @@ def check_warps(device, hw=TRAIN_HW):
                    err_dfx=errs[1], err_dfy=errs[2])
         for e, sc, what in zip(errs, scales, ("output", "d_fx", "d_fy")):
             require(e <= WARP_TOL * sc, f"{name}: {what} max |err| {e} above {WARP_TOL * sc}")
+        # the share of the fused backward's tiles whose d_img box fits shared
+        # memory, by the plain box rule (and, fused, by the kernel's count)
+        row["fit_share"] = W.tile_fit_share(fx, fy, h, w, c)
         if img_grad:
             row["err_dimg"] = (got[3] - want[3]).abs().max().item()
             row["rel_dimg"] = _rel_err(got[3], want[3])
             require(row["rel_dimg"] <= ATOMIC_RTOL,
                     f"{name}: d_img relative err {row['rel_dimg']} above {ATOMIC_RTOL}")
+            row["kernel_fit_share"] = kernel_fit_share(W.grid_sample_bwd_fused_cuda, row)
 
         # times: the kernels alone, the plain forward, the plain backward
         # from a kept graph, and the library calls on NCHW copies with a
@@ -660,11 +682,15 @@ def check_warps(device, hw=TRAIN_HW):
             "library": lambda: F.grid_sample(inp, grid, "bilinear", pad, align)})
         bwd_kernel = ((lambda: W.grid_sample_bwd_fused_cuda(img, fx, fy, cot, zeros)) if img_grad
                       else (lambda: W.grid_sample_bwd_coord_cuda(img, fx, fy, cot, zeros, tile)))
+        # the fused kernel's parts: the coordinate-only kernel on the same
+        # inputs, and the zeroed d_img the wrapper allocates
+        parts = ({"coord": lambda: W.grid_sample_bwd_coord_cuda(img, fx, fy, cot, zeros),
+                  "zeros": lambda: torch.zeros_like(img)} if img_grad else {})
         bwd = time_calls({
             "plain": lambda: torch.autograd.grad(plain_out, wrt, cot, retain_graph=True),
             "kernel": bwd_kernel,
             "library": lambda: torch.ops.aten.grid_sampler_2d_backward(
-                cot_nchw, inp, grid, 0, 0 if zeros else 1, align, mask)})
+                cot_nchw, inp, grid, 0, 0 if zeros else 1, align, mask), **parts})
         p, img_b, c4 = bg * h * w, b_img * h * w * c * 4, c * 4
         # forward: image, coordinates and output once; a few flops a sample
         row["fwd"] = dict(ms=fwd["kernel"], plain_ms=fwd["plain"], library_ms=fwd["library"])
@@ -672,13 +698,58 @@ def check_warps(device, hw=TRAIN_HW):
                                                                p * (16 + 8 * c))
         # backward: image, coordinates and cotangent read once, the two
         # coordinate gradients (and d_img) written once
-        row["bwd"] = dict(ms=bwd["kernel"], plain_ms=bwd["plain"], library_ms=bwd["library"])
+        row["bwd"] = dict(ms=bwd["kernel"], plain_ms=bwd["plain"], library_ms=bwd["library"],
+                          **{f"{k}_ms": bwd[k] for k in parts})
         row["bwd"]["bound_ms"], row["bwd"]["bound_by"] = bound(
             img_b * (2 if img_grad else 1) + p * (16 + c4), p * (16 + 16 * c))
         print(f"[warp] {row}")
         rows.append(row)
         del plain_out, wrt
     return rows
+
+
+def check_warp_branches(device, n=16, hw=TRAIN_HW):
+    """The fused backward (depth warps: C=1, zeros mode) on coordinates
+    displaced by up to +-40 px in the left half of the grid, whose tiles'
+    d_img boxes exceed the shared-memory budget and take global atomics, and
+    by a few pixels in the right half, whose boxes fit: both branches run,
+    the kernel's count matches the plain box rule, and the result matches
+    the plain version and the plain tiled decomposition
+    (`bwd_tiled_reference`); the kernel's and aten's times."""
+    from endodav_tpu_torch.kernels import warp_matmul as W
+
+    h, w = hw
+    g = torch.Generator(device=device).manual_seed(SEED + 10)
+    img = torch.rand((n, h, w, 1), generator=g, device=device)
+    fx, fy = _coords(g, n, h, w, device)
+    wild = (torch.arange(w, device=device) < w // 2).float()
+    fx = (fx + wild * (80 * torch.rand((n, h, w), generator=g, device=device) - 40)).contiguous()
+    fy = (fy + wild * (80 * torch.rand((n, h, w), generator=g, device=device) - 40)).contiguous()
+    cot = torch.randn((n, h, w, 1), generator=g, device=device)
+    got = W.grid_sample_bwd_fused_cuda(img, fx, fy, cot, True)
+    row = dict(shape=f"img [{n},{h},{w},1] coords [{n},{h},{w}], +-40 px in the left half",
+               fit_share=W.tile_fit_share(fx, fy, h, w, 1))
+    row["kernel_fit_share"] = kernel_fit_share(W.grid_sample_bwd_fused_cuda, row)
+    require(0 < row["kernel_fit_share"] < 1,
+            f"forced branches: fit share {row['kernel_fit_share']}, expected both branches")
+    i, x, y = (t.clone().requires_grad_() for t in (img, fx, fy))
+    plain = torch.autograd.grad(W.grid_sample_reference(i, x, y, True), (i, x, y), cot)
+    tiled = W.bwd_tiled_reference(img, fx, fy, cot, True)
+    require(abs(tiled[3] - row["fit_share"]) < 1e-6, f"tiled reference share {tiled[3]}")
+    for label, want in (("plain", plain), ("tiled", tiled)):
+        row[f"rel_dimg_vs_{label}"] = _rel_err(got[0], want[0])
+        require(row[f"rel_dimg_vs_{label}"] <= ATOMIC_RTOL, f"forced branches: {row}")
+        for k, what in ((1, "dfx"), (2, "dfy")):
+            row[f"err_{what}_vs_{label}"] = e = (got[k] - want[k]).abs().max().item()
+            require(e <= WARP_TOL * max(1.0, want[k].abs().max().item()), f"forced: {row}")
+    inp, grid, pad = _library_inputs(img, fx, fy, 1, True, True)
+    cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
+    t = time_calls({"kernel": lambda: W.grid_sample_bwd_fused_cuda(img, fx, fy, cot, True),
+                    "library": lambda: torch.ops.aten.grid_sampler_2d_backward(
+                        cot_nchw, inp, grid, 0, 0, True, [True, True])})
+    row.update(ms=t["kernel"], library_ms=t["library"])
+    print(f"[warp branches] {row}")
+    return row
 
 
 def _splat_coords(g, n, h, w, device):
@@ -939,6 +1010,9 @@ def check_warps_cp(device, hw=TRAIN_HW):
                 rel = _rel_err(got[3], want[3])
                 row[f"rel_dimg_vs_{label}"] = rel
                 require(rel <= ATOMIC_RTOL, f"{name} planes: d_img vs {label} relative {rel}")
+        row["fit_share"] = W.tile_fit_share(fx, fy, h, w, c)
+        if img_grad:  # the last plane launch: `got`'s
+            row["kernel_fit_share"] = kernel_fit_share(W.grid_sample_bwd_fused_cp_cuda, row)
 
         planes = W.to_planes(img)
         inp, grid, pad = _library_inputs(img, fx, fy, tile, align, zeros)
@@ -1358,6 +1432,8 @@ def run_training(device, root, steps=4, trace_dir=None):
         torch.cuda.synchronize(device)
         (cp_times if cp else times).append((time.perf_counter() - t0) * 1e3)
         launches = {k: fn.launches for k, fn in counters.items()}
+        fused = counters["grid_sample_bwd_fused"]  # the step's one launch: the depth warps
+        fit = f"{fused.last_tiles - fused.global_blocks()}/{fused.last_tiles}"
         changed = {k: not torch.equal(before[k], p.detach()) for k, p in watch.items()}
         # updated = Adam stepped the parameter: its gate was open and it got
         # a gradient (dvlora vectors at init get gradients near 1e-15, whose
@@ -1365,7 +1441,8 @@ def run_training(device, root, steps=4, trace_dir=None):
         updated = {k: adam_steps(p) == counts[k] + 1 for k, p in watch.items()}
         print(f"[train] step {step}{' ENDODAV_WARP_CP=1' if cp else ''}: loss {loss:.6f} "
               f"loss_0 {loss_0:.6f} {(cp_times if cp else times)[-1]:.1f} ms "
-              f"launches {launches} changed {changed} updated {updated}")
+              f"launches {launches} changed {changed} updated {updated}; depth-warp tiles "
+              f"summing d_img in shared memory {fit}")
         require(np.isfinite(loss) and np.isfinite(loss_0), f"step {step}: loss not finite")
         require(not changed["frozen"] and not updated["frozen"],
                 f"step {step}: a frozen ViT weight changed")
@@ -1526,6 +1603,7 @@ def main() -> int:
         tattn_rows, tattn_grad_err = check_temporal_attention(device)
         int8_row = check_int8(device)
         warp_rows = check_warps(device)
+        check_warp_branches(device)
         cp_rows = check_warps_cp(device)
         splat_row = check_splat(device)
     from endodav_tpu_torch.kernels.fused_rcu import fused_rcu

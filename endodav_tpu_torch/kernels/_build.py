@@ -46,10 +46,8 @@ _SIGNATURES = {
     "endodav_fused_temporal_block": ([_int, *[_vp] * 15, _int, _int, _int, _int, _int, _int,
                                       _f, _vp], _int),
     "endodav_fused_mlp": ([_int, *[_vp] * 8, _int, _int, _int, _int, _vp], _int),
-    "endodav_grid_sample_fwd": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
-                                 _int, _vp], _int),
-    "endodav_grid_sample_bwd": ([_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
-                                 _int, _int, _int, _int, _vp], _int),
+    "endodav_grid_sample_fwd": ([_vp, _vp, _vp, _vp, *[_int] * 9, _vp], _int),
+    "endodav_grid_sample_bwd": ([*[_vp] * 8, *[_int] * 9, _vp], _int),
     "endodav_splat": ([_vp, _vp, _vp, _int, _int, _int, _int, _vp], _int),
     "endodav_fused_rcu": ([_int, *[_vp] * 8, _int, _int, _int, _int, _vp], _int),
     "endodav_temporal_attention": ([_int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,

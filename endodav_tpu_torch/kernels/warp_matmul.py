@@ -4,9 +4,9 @@ versions and the wrappers with their gradients.
 Port of `endodav_tpu/kernels/warp_matmul.py` (`grid_sample_mm` with its
 Pallas forward and its two backward kernels, and `splat_mm`).  The
 functions are the 4-corner gather and the scatter-add of
-`endodav_tpu/ops/sampling.py`; `csrc/warp.cu` computes them with one
-thread per pixel (the TPU's one-hot matmuls existed only because a TPU
-has no fast gather).
+`endodav_tpu/ops/sampling.py`; `csrc/warp.cu` computes them with direct
+gathers (the TPU's one-hot matmuls existed only because a TPU has no fast
+gather).
 
 * `grid_sample_mm(img, fx, fy, ...)` samples img [B, H, W, C] at
   fractional pixel coordinates fx, fy [B * img_tile, *out] and returns
@@ -26,6 +26,14 @@ fused backward accumulates d_img into planes, moved back to [B, H, W, C].
 The function is the same; on the CPU the plane route runs its own plain
 version, `grid_sample_planes_reference`, a gather from the planes.
 
+The fused backward tiles the output grid (`BWD_TILE`) and sums each
+tile's d_img contributions in shared memory over the bounding box of its
+corners when that box fits `BOX_FLOATS`; other tiles add per pixel into
+d_img.  `tile_fit_share` is that box rule and `bwd_tiled_reference` the
+whole partition in plain PyTorch, for the tests and `chip_smoke.py`; the
+kernel counts its tiles that did not fit, read by
+`grid_sample_bwd_fused_cuda.global_blocks()` (and the `_cp` twin's).
+
 On a CUDA tensor each wrapper launches its kernel or raises; the plain
 versions (`grid_sample_reference`, `grid_sample_planes_reference`,
 `splat_reference`) run only for CPU tensors, where autograd
@@ -43,21 +51,37 @@ from endodav_tpu_torch.utils.envflags import env_on
 __all__ = ["grid_sample_mm", "splat_mm", "grid_sample_reference", "grid_sample_planes_reference",
            "splat_reference", "grid_sample_fwd_cuda", "grid_sample_bwd_coord_cuda",
            "grid_sample_bwd_fused_cuda", "grid_sample_fwd_cp_cuda", "grid_sample_bwd_coord_cp_cuda",
-           "grid_sample_bwd_fused_cp_cuda", "splat_cuda", "use_cp"]
+           "grid_sample_bwd_fused_cp_cuda", "splat_cuda", "use_cp", "tile_fit_share",
+           "bwd_tiled_reference"]
 
 MAX_CHANNELS = 4  # the kernels' channel loop is unrolled for C = 1..4
+# the fused backward's tile (rows, columns) and d_img box budget in floats
+# (csrc/warp.cu: TILE_RS * BWD_PX rows of TILE_W columns, BOX_FLOATS)
+BWD_TILE = (32, 32)
+BOX_FLOATS = 8192
 
 
 def _axis(f: torch.Tensor, size: int, zeros_mode: bool):
-    """Clipped corner indices and (masked) lerp weights of one axis."""
+    """One axis as `csrc/warp.cu:axis_corners` has it: the clipped corner
+    indices, the lerp weights times the inside masks in zeros mode, and the
+    inside masks (1 in border mode)."""
     f0 = torch.floor(f)
     w1 = f - f0
     w0 = 1.0 - w1
     i0, i1 = f0, f0 + 1.0
     if zeros_mode:
-        w0 = w0 * ((i0 >= 0) & (i0 <= size - 1))
-        w1 = w1 * ((i1 >= 0) & (i1 <= size - 1))
-    return (i0.clamp(0, size - 1).long(), i1.clamp(0, size - 1).long()), (w0, w1)
+        v0 = ((i0 >= 0) & (i0 <= size - 1)).to(f.dtype)
+        v1 = ((i1 >= 0) & (i1 <= size - 1)).to(f.dtype)
+        w0, w1 = w0 * v0, w1 * v1
+    else:
+        v0 = v1 = torch.ones_like(f)
+    return (_clip(i0, size), _clip(i1, size)), (w0, w1), (v0, v1)
+
+
+def _clip(i, size: int):
+    """Corner index i clipped into [0, size - 1] as the kernels clip it
+    (`fmaxf` sends NaN to 0)."""
+    return i.nan_to_num(0.0).clamp(0, size - 1).long()
 
 
 def grid_sample_reference(img, fx, fy, zeros_mode: bool, img_tile: int = 1):
@@ -69,8 +93,8 @@ def grid_sample_reference(img, fx, fy, zeros_mode: bool, img_tile: int = 1):
     out_sp = fx.shape[1:]
     flat = img.reshape(b_img, h * w, c)
     src = (torch.arange(bg, device=img.device) // img_tile)[:, None]
-    (x0, x1), (wx0, wx1) = _axis(fx.reshape(bg, -1), w, zeros_mode)
-    (y0, y1), (wy0, wy1) = _axis(fy.reshape(bg, -1), h, zeros_mode)
+    (x0, x1), (wx0, wx1), _ = _axis(fx.reshape(bg, -1), w, zeros_mode)
+    (y0, y1), (wy0, wy1), _ = _axis(fy.reshape(bg, -1), h, zeros_mode)
     out = 0.0
     for yi, wy in ((y0, wy0), (y1, wy1)):
         for xi, wx in ((x0, wx0), (x1, wx1)):
@@ -87,8 +111,8 @@ def grid_sample_planes_reference(planes, fx, fy, zeros_mode: bool, img_tile: int
     flat = planes.reshape(b_img, c, h * w)
     src = (torch.arange(bg, device=planes.device) // img_tile)[:, None, None]
     chan = torch.arange(c, device=planes.device)[None, :, None]
-    (x0, x1), (wx0, wx1) = _axis(fx.reshape(bg, 1, -1), w, zeros_mode)
-    (y0, y1), (wy0, wy1) = _axis(fy.reshape(bg, 1, -1), h, zeros_mode)
+    (x0, x1), (wx0, wx1), _ = _axis(fx.reshape(bg, 1, -1), w, zeros_mode)
+    (y0, y1), (wy0, wy1), _ = _axis(fy.reshape(bg, 1, -1), h, zeros_mode)
     out = 0.0
     for yi, wy in ((y0, wy0), (y1, wy1)):
         for xi, wx in ((x0, wx0), (x1, wx1)):
@@ -128,6 +152,116 @@ def splat_reference(x, y, height: int, width: int):
     return out.reshape(b, height, width)
 
 
+def _grid_rows(f):
+    """Coordinates [Bg, *out] as the [Bg, ph, pw] output grid the kernels tile."""
+    return f.reshape(f.shape[0], -1, f.shape[-1] if f.dim() > 1 else 1)
+
+
+def _tile_boxes(fx, fy, h: int, w: int, c: int, tile=BWD_TILE, budget: int = BOX_FLOATS):
+    """The fused backward's partition: each output pixel's tile [Bg, ph, pw]
+    (row-major over grid element, tile row, tile column), and each tile's box
+    of clipped corner indices (x0, y0, box width, box height) and whether its
+    ``c`` channels fit ``budget`` floats."""
+    fx3, fy3 = _grid_rows(fx), _grid_rows(fy)
+    bg, ph, pw = fx3.shape
+    th, tw = tile
+    ny, nx = -(-ph // th), -(-pw // tw)
+    dev = fx.device
+    tid = ((torch.arange(bg, device=dev)[:, None, None] * ny
+            + (torch.arange(ph, device=dev) // th)[None, :, None]) * nx
+           + (torch.arange(pw, device=dev) // tw)[None, None, :]).reshape(-1)
+    n = bg * ny * nx
+    lo, hi = [], []
+    for f, size in ((fx3, w), (fy3, h)):
+        f0 = torch.floor(f).reshape(-1)
+        i0, i1 = _clip(f0, size), _clip(f0 + 1.0, size)
+        lo.append(torch.full((n,), size, dtype=torch.long, device=dev)
+                  .scatter_reduce(0, tid, i0, "amin"))
+        hi.append(torch.full((n,), -1, dtype=torch.long, device=dev)
+                  .scatter_reduce(0, tid, i1, "amax"))
+    bw, bh = hi[0] - lo[0] + 1, hi[1] - lo[1] + 1
+    return tid.reshape(bg, ph, pw), lo[0], lo[1], bw, bh, bw * bh * c <= budget
+
+
+def tile_fit_share(fx, fy, h: int, w: int, c: int = 1, tile=BWD_TILE,
+                   budget: int = BOX_FLOATS) -> float:
+    """The share of the fused backward's tiles whose d_img box (the bounding
+    box of their clipped corner indices, ``c`` channels) fits the kernel's
+    shared-memory budget, for coordinates fx, fy [Bg, *out] on an h x w image."""
+    return _tile_boxes(fx, fy, h, w, c, tile, budget)[-1].double().mean().item()
+
+
+def bwd_tiled_reference(img, fx, fy, g, zeros_mode: bool, planes: bool = False,
+                        tile=BWD_TILE, budget: int = BOX_FLOATS):
+    """The fused backward's decomposition in plain PyTorch, for the tests and
+    `chip_smoke.py`: img [B, H, W, C] (with ``planes``, [B, C, H, W]), fx, fy
+    [B, *out], the cotangent g [B, *out, C].  The coordinate gradients per
+    pixel; d_img through the kernel's partition: each tile whose box fits
+    ``budget`` sums its contributions into a local box that is then added
+    into d_img, the other tiles add theirs pixel by pixel.  Returns (d_img in
+    img's layout, d_fx, d_fy, the share of tiles that fit)."""
+    if planes:
+        b, c, h, w = img.shape
+        flat = img.reshape(b, c, h * w)
+    else:
+        b, h, w, c = img.shape
+        flat = img.reshape(b, h * w, c)
+    fx3, fy3 = _grid_rows(fx).reshape(b, -1), _grid_rows(fy).reshape(b, -1)
+    gq = g.reshape(b, -1, c)
+    (x0, x1), (wx0, wx1), (vx0, vx1) = _axis(fx3, w, zeros_mode)
+    (y0, y1), (wy0, wy1), (vy0, vy1) = _axis(fy3, h, zeros_mode)
+    src = torch.arange(b, device=img.device)[:, None]
+
+    def val(yi, xi):  # [B, P, C]
+        return (flat[src[:, :, None], torch.arange(c, device=img.device), (yi * w + xi)[..., None]]
+                if planes else flat[src, yi * w + xi])
+
+    v00, v01, v10, v11 = val(y0, x0), val(y0, x1), val(y1, x0), val(y1, x1)
+    wx0_, wx1_, wy0_, wy1_ = (t[..., None] for t in (wx0, wx1, wy0, wy1))
+    dwy0 = (gq * (wx0_ * v00 + wx1_ * v01)).sum(-1)
+    dwy1 = (gq * (wx0_ * v10 + wx1_ * v11)).sum(-1)
+    dwx0 = (gq * (wy0_ * v00 + wy1_ * v10)).sum(-1)
+    dwx1 = (gq * (wy0_ * v01 + wy1_ * v11)).sum(-1)
+    dfx = (dwx1 * vx1 - dwx0 * vx0).reshape(fx.shape)
+    dfy = (dwy1 * vy1 - dwy0 * vy0).reshape(fy.shape)
+
+    tid, bx0, by0, bw, bh, fits = _tile_boxes(fx, fy, h, w, c, tile, budget)
+    tid = tid.reshape(b, -1)
+    chan = torch.arange(c, device=img.device)
+
+    def at(v):  # a tile's value at each of its pixels, [B, P, 1]
+        return v[tid][..., None]
+
+    def offset(yi, xi, hh, ww):  # [B, P, C] offsets of pixel (yi, xi) in [hh, ww] images
+        return (chan * hh + yi) * ww + xi if planes else (yi * ww + xi) * c + chan
+
+    sizes = torch.where(fits, bw * bh * c, 0)
+    box_at = torch.cumsum(sizes, 0) - sizes  # each fitting tile's box in `boxes`
+    boxes = torch.zeros(int(sizes.sum()), dtype=img.dtype, device=img.device)
+    dimg = torch.zeros(b * h * w * c, dtype=img.dtype, device=img.device)
+    fit = at(fits).expand(-1, -1, c)
+    for yi, xi, wy, wx in ((y0, x0, wy0_, wx0_), (y0, x1, wy0_, wx1_),
+                           (y1, x0, wy1_, wx0_), (y1, x1, wy1_, wx1_)):
+        a = gq * wy * wx
+        yi, xi = yi[..., None], xi[..., None]
+        local = at(box_at) + offset(yi - at(by0), xi - at(bx0), at(bh), at(bw))
+        boxes.index_add_(0, local[fit], a[fit])
+        dimg.index_add_(0, (src[..., None] * (h * w * c) + offset(yi, xi, h, w))[~fit], a[~fit])
+    # flush: every box entry back to its pixel of d_img
+    t = torch.repeat_interleave(torch.arange(fits.numel(), device=img.device), sizes)
+    i = torch.arange(boxes.numel(), device=img.device) - box_at[t]
+    if planes:
+        cy, lx = i // bw[t], i % bw[t]
+        ch, ly = cy // bh[t], cy % bh[t]
+        off = (ch * h + by0[t] + ly) * w + bx0[t] + lx
+    else:
+        ly, rem = i // (bw[t] * c), i % (bw[t] * c)
+        off = ((by0[t] + ly) * w + bx0[t]) * c + rem
+    nt = fits.numel() // b  # tiles a grid element
+    dimg.index_add_(0, (t // nt) * (h * w * c) + off, boxes)
+    return dimg.reshape(img.shape), dfx, dfy, fits.double().mean().item()
+
+
 def _require_cuda_f32(what: str, **tensors):
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
@@ -151,12 +285,12 @@ def _check_shapes(img, fx, fy, img_tile, planes=False):
 def _launch_fwd(img, fx, fy, zeros_mode, img_tile, planes):
     _require_cuda_f32("grid_sample", img=img, fx=fx, fy=fy)
     _, h, w, c = _check_shapes(img, fx, fy, img_tile, planes)
-    bg, p = fx.shape[0], fx[0].numel()
+    bg, (ph, pw) = fx.shape[0], _grid_rows(fx).shape[1:]
     out = torch.empty((*fx.shape, c), dtype=torch.float32, device=img.device)
     lib = _build.library()
     with torch.cuda.device(img.device):
         err = lib.endodav_grid_sample_fwd(img.data_ptr(), fx.data_ptr(), fy.data_ptr(),
-                                          out.data_ptr(), bg, p, h, w, c, img_tile,
+                                          out.data_ptr(), bg, ph * pw, pw, h, w, c, img_tile,
                                           int(zeros_mode), int(planes), _build.stream_of(img))
     _build.check(err, "grid_sample_fwd")
     return out
@@ -177,16 +311,24 @@ def grid_sample_fwd_cp_cuda(planes, fx, fy, zeros_mode: bool, img_tile: int = 1)
     return out
 
 
-def _launch_bwd(img, fx, fy, g, zeros_mode, img_tile, dimg, planes=False):
+def _launch_bwd(img, fx, fy, g, zeros_mode, img_tile, dimg, planes=False, fused=None):
+    """Launch a backward kernel; with ``dimg`` the fused one, whose count of
+    tiles that took global atomics lands in a counter kept on ``fused``."""
     _require_cuda_f32("grid_sample backward", img=img, fx=fx, fy=fy, g=g)
     _, h, w, c = _check_shapes(img, fx, fy, img_tile, planes)
-    bg, p = fx.shape[0], fx[0].numel()
+    bg, (ph, pw) = fx.shape[0], _grid_rows(fx).shape[1:]
     dfx, dfy = torch.empty_like(fx), torch.empty_like(fy)
+    counter = None
+    if dimg is not None:
+        counter = torch.zeros(1, dtype=torch.int32, device=img.device)
+        fused.last_counter = counter
+        fused.last_tiles = bg * -(-ph // BWD_TILE[0]) * -(-pw // BWD_TILE[1])
     lib = _build.library()
     with torch.cuda.device(img.device):
         err = lib.endodav_grid_sample_bwd(
             img.data_ptr(), fx.data_ptr(), fy.data_ptr(), g.data_ptr(), dfx.data_ptr(),
-            dfy.data_ptr(), None if dimg is None else dimg.data_ptr(), bg, p, h, w, c,
+            dfy.data_ptr(), None if dimg is None else dimg.data_ptr(),
+            None if counter is None else counter.data_ptr(), bg, ph * pw, pw, h, w, c,
             img_tile, int(zeros_mode), int(planes), _build.stream_of(img))
     _build.check(err, "grid_sample_bwd")
     return dfx, dfy
@@ -203,7 +345,7 @@ def grid_sample_bwd_fused_cuda(img, fx, fy, g, zeros_mode: bool):
     """Fused backward (`_bwd_fused_kernel`): (d_img, d_fx, d_fy); d_img is
     summed with atomics, so its last bits vary from run to run."""
     dimg = torch.zeros_like(img)
-    dfx, dfy = _launch_bwd(img, fx, fy, g, zeros_mode, 1, dimg)
+    dfx, dfy = _launch_bwd(img, fx, fy, g, zeros_mode, 1, dimg, fused=grid_sample_bwd_fused_cuda)
     grid_sample_bwd_fused_cuda.launches += 1
     return dimg, dfx, dfy
 
@@ -219,9 +361,19 @@ def grid_sample_bwd_fused_cp_cuda(planes, fx, fy, g, zeros_mode: bool):
     """Plane-layout fused backward (`_bwd_fused_kernel_cp`): (d_planes
     [B, C, H, W], d_fx, d_fy), d_planes summed with atomics."""
     dplanes = torch.zeros_like(planes)
-    dfx, dfy = _launch_bwd(planes, fx, fy, g, zeros_mode, 1, dplanes, True)
+    dfx, dfy = _launch_bwd(planes, fx, fy, g, zeros_mode, 1, dplanes, True,
+                           fused=grid_sample_bwd_fused_cp_cuda)
     grid_sample_bwd_fused_cp_cuda.launches += 1
     return dplanes, dfx, dfy
+
+
+def _global_blocks(fused):
+    def global_blocks() -> int:
+        """Tiles of the last launch whose d_img box did not fit shared memory
+        and took per-pixel global atomics (of ``.last_tiles``); waits for
+        that launch, so only checks call it."""
+        return 0 if fused.last_counter is None else int(fused.last_counter.item())
+    return global_blocks
 
 
 class _GridSample(torch.autograd.Function):
@@ -327,3 +479,5 @@ for _fn in (grid_sample_fwd_cuda, grid_sample_bwd_coord_cuda, grid_sample_bwd_fu
             grid_sample_fwd_cp_cuda, grid_sample_bwd_coord_cp_cuda, grid_sample_bwd_fused_cp_cuda,
             splat_cuda):
     _fn.launches = 0
+for _fn in (grid_sample_bwd_fused_cuda, grid_sample_bwd_fused_cp_cuda):
+    _fn.last_counter, _fn.last_tiles, _fn.global_blocks = None, 0, _global_blocks(_fn)

@@ -92,18 +92,51 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
 
 
+def _warp_case(rng, b, tile, c, h, w, out_hw, disp=0.0):
+    """img [b, h, w, c], coordinates [b * tile, *out_hw] and a cotangent.
+    Without ``disp`` the coordinates are uniform over the image and a few
+    pixels past every border; with it they follow the output grid's pixels
+    (the training step's warps) plus 1.5 px of noise, and in the left half
+    of the grid up to +-disp px, so some tiles' d_img boxes overflow."""
+    n = b * tile
+    img = rng.uniform(0, 1, (b, h, w, c))
+    if disp:
+        yy, xx = np.meshgrid(np.arange(out_hw[0]), np.arange(out_hw[1]), indexing="ij")
+        wild = disp * (xx < out_hw[1] // 2)
+        fx = xx + rng.normal(0, 1.5, (n, *out_hw)) + wild * rng.uniform(-1, 1, (n, *out_hw))
+        fy = yy + rng.normal(0, 1.5, (n, *out_hw)) + wild * rng.uniform(-1, 1, (n, *out_hw))
+    else:
+        fx = rng.uniform(-3, w + 2, (n, *out_hw))
+        fy = rng.uniform(-3, h + 2, (n, *out_hw))
+    g = rng.standard_normal((n, *out_hw, c))
+    return (torch.from_numpy(a.astype(np.float32)).to(_card()) for a in (img, fx, fy, g))
+
+
+# (C, zeros mode, img_tile, image gradient, image [h, w], output grid,
+# +-displacement, channel planes): 11x13 and 20x36 grids (P % 4 != 0, and
+# 36 columns: a ragged forward tile), a 256x320 depth-warp case whose
+# left-half displacements send some tiles of the fused backward to global
+# atomics, colour synthesis at 256x320 (img_tile 4, 16-byte accesses), and
+# the plane layout
+WARP_CASES = [(3, False, 4, False, (37, 53), (11, 13), 0.0, False),
+              (1, True, 1, True, (37, 53), (11, 13), 0.0, False),
+              (2, False, 1, True, (37, 53), (11, 13), 0.0, False),
+              (4, True, 2, False, (37, 53), (11, 13), 0.0, False),
+              (2, True, 1, True, (30, 41), (20, 36), 0.0, False),
+              (1, True, 1, True, (256, 320), (256, 320), 40.0, False),
+              (3, False, 4, False, (256, 320), (256, 320), 6.0, False),
+              (3, True, 1, True, (64, 96), (64, 96), 40.0, True),
+              (2, False, 2, False, (37, 53), (11, 13), 0.0, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,zeros,tile,img_grad", [(3, False, 4, False), (1, True, 1, True),
-                                                   (2, False, 1, True), (4, True, 2, False)])
-def test_grid_sample_kernels_match_plain(c, zeros, tile, img_grad):
-    dev = _card()
+@pytest.mark.parametrize("c,zeros,tile,img_grad,hw,out_hw,disp,cp", WARP_CASES)
+def test_grid_sample_kernels_match_plain(monkeypatch, c, zeros, tile, img_grad, hw, out_hw, disp,
+                                         cp):
+    monkeypatch.setenv("ENDODAV_WARP_CP", "1" if cp else "0")
     rng = np.random.default_rng(c * 10 + tile)
-    b, h, w = 3, 37, 53
-    img = torch.from_numpy(rng.uniform(0, 1, (b, h, w, c)).astype(np.float32)).to(dev)
-    # coordinates reach past every border
-    fx = torch.from_numpy(rng.uniform(-3, w + 2, (b * tile, 11, 13)).astype(np.float32)).to(dev)
-    fy = torch.from_numpy(rng.uniform(-3, h + 2, (b * tile, 11, 13)).astype(np.float32)).to(dev)
-    g = torch.from_numpy(rng.standard_normal((b * tile, 11, 13, c)).astype(np.float32)).to(dev)
+    b = 2 if hw[0] > 100 else 3
+    img, fx, fy, g = _warp_case(rng, b, tile, c, *hw, out_hw, disp)
 
     def run(fn):
         i, x, y = (t.clone().requires_grad_() for t in (img, fx, fy))
@@ -111,18 +144,46 @@ def test_grid_sample_kernels_match_plain(c, zeros, tile, img_grad):
         out.backward(g)
         return out.detach(), (i.grad if img_grad else None), x.grad, y.grad
 
-    counts = (W.grid_sample_fwd_cuda.launches, W.grid_sample_bwd_coord_cuda.launches,
-              W.grid_sample_bwd_fused_cuda.launches)
+    fns = ((W.grid_sample_fwd_cp_cuda, W.grid_sample_bwd_coord_cp_cuda,
+            W.grid_sample_bwd_fused_cp_cuda) if cp else
+           (W.grid_sample_fwd_cuda, W.grid_sample_bwd_coord_cuda, W.grid_sample_bwd_fused_cuda))
+    counts = [f.launches for f in fns]
     got = run(lambda i, x, y: W.grid_sample_mm(i, x, y, zeros, img_grad, tile))
     want = run(lambda i, x, y: W.grid_sample_reference(i, x, y, zeros, tile))
     torch.cuda.synchronize()
-    assert W.grid_sample_fwd_cuda.launches == counts[0] + 1
-    assert W.grid_sample_bwd_coord_cuda.launches == counts[1] + (not img_grad)
-    assert W.grid_sample_bwd_fused_cuda.launches == counts[2] + img_grad
+    assert [f.launches - n for f, n in zip(fns, counts)] == [1, int(not img_grad), int(img_grad)]
     for k in (0, 2, 3):
         assert (got[k] - want[k]).abs().max().item() <= WARP_TOL
     if img_grad:
         assert _rel(got[1], want[1]) <= ATOMIC_RTOL
+        share = W.tile_fit_share(fx, fy, *hw, c)
+        fused = fns[2]
+        assert fused.global_blocks() == round((1 - share) * fused.last_tiles)
+        if disp > 6:  # both branches
+            assert 0 < fused.global_blocks() < fused.last_tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("disp,planes", [(2.0, False), (40.0, False), (40.0, True)])
+def test_fused_backward_counts_global_tiles(disp, planes):
+    """The fused backward's count of tiles that took global atomics: 0 when
+    every d_img box fits shared memory (displacements of a few pixels),
+    positive with +-40 px in half the grid, and the plain box rule's count
+    either way; d_img against the plain tiled decomposition."""
+    rng = np.random.default_rng(int(disp) + planes)
+    h, w = 128, 160
+    img, fx, fy, g = _warp_case(rng, 4, 1, 1, h, w, (h, w), disp)
+    src = W.to_planes(img) if planes else img
+    fused = W.grid_sample_bwd_fused_cp_cuda if planes else W.grid_sample_bwd_fused_cuda
+    dimg, dfx, dfy = fused(src, fx, fy, g, True)
+    tiles = 4 * (h // 32) * (w // 32)
+    assert fused.last_tiles == tiles
+    want = W.bwd_tiled_reference(src, fx, fy, g, True, planes)
+    assert fused.global_blocks() == round((1 - want[3]) * tiles)
+    assert (fused.global_blocks() == 0) == (disp < 6)
+    assert _rel(dimg, want[0]) <= ATOMIC_RTOL
+    assert (dfx - want[1]).abs().max().item() <= WARP_TOL
+    assert (dfy - want[2]).abs().max().item() <= WARP_TOL
 
 
 @pytest.mark.cuda
