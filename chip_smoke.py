@@ -25,8 +25,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the kernel's count held to the plain box rule), the fused backward
      on displacements that force its global-atomics branch in half its
      tiles, their channel-plane twins at the C > 1 calls
-     (also against the interleaved kernels), and the forward splat; with
-     the kernel's, the plain version's and one PyTorch call's times.  The
+     (also against the interleaved kernels), and the forward splat (also
+     timed on flow-shaped coordinates whose neighbours scatter); with
+     the kernel's, the plain version's and one PyTorch call's times (the
+     splat's two: index_put_ and index_add_).  The
      plain versions and the PyTorch calls of these phases run in IEEE f32
      (TF32 off) inside a local context (`ieee_f32`); the later phases run
      under the precision policy that the entry points set themselves
@@ -64,8 +66,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      `train_one_batch` and 2 more with ENDODAV_WARP_CP=1, with finite
      losses, the expected parameter changes and the expected launches of
      every kernel per step, and the share of the depth warps' tiles that
-     summed d_img in shared memory (the kernel's count); ms/step and the
-     peak memory;
+     summed d_img in shared memory (the kernel's count), and the splat
+     kernel against its plain version and timed on the step's own
+     coordinates; ms/step and the peak memory;
   9. a JSON line per kernel and, last, the device line.
 
 ``--profile-step TRACE_DIR`` adds a `torch.profiler` run of one more
@@ -715,7 +718,8 @@ def check_warp_branches(device, n=16, hw=TRAIN_HW):
     by a few pixels in the right half, whose boxes fit: both branches run,
     the kernel's count matches the plain box rule, and the result matches
     the plain version and the plain tiled decomposition
-    (`bwd_tiled_reference`); the kernel's and aten's times."""
+    (`bwd_tiled_reference`); the kernel's, the plain backward's and aten's
+    times and the bound."""
     from endodav_tpu_torch.kernels import warp_matmul as W
 
     h, w = hw
@@ -733,7 +737,8 @@ def check_warp_branches(device, n=16, hw=TRAIN_HW):
     require(0 < row["kernel_fit_share"] < 1,
             f"forced branches: fit share {row['kernel_fit_share']}, expected both branches")
     i, x, y = (t.clone().requires_grad_() for t in (img, fx, fy))
-    plain = torch.autograd.grad(W.grid_sample_reference(i, x, y, True), (i, x, y), cot)
+    plain_out = W.grid_sample_reference(i, x, y, True)
+    plain = torch.autograd.grad(plain_out, (i, x, y), cot, retain_graph=True)
     tiled = W.bwd_tiled_reference(img, fx, fy, cot, True)
     require(abs(tiled[3] - row["fit_share"]) < 1e-6, f"tiled reference share {tiled[3]}")
     for label, want in (("plain", plain), ("tiled", tiled)):
@@ -744,10 +749,16 @@ def check_warp_branches(device, n=16, hw=TRAIN_HW):
             require(e <= WARP_TOL * max(1.0, want[k].abs().max().item()), f"forced: {row}")
     inp, grid, pad = _library_inputs(img, fx, fy, 1, True, True)
     cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
-    t = time_calls({"kernel": lambda: W.grid_sample_bwd_fused_cuda(img, fx, fy, cot, True),
+    t = time_calls({"plain": lambda: torch.autograd.grad(plain_out, (i, x, y), cot,
+                                                         retain_graph=True),
+                    "kernel": lambda: W.grid_sample_bwd_fused_cuda(img, fx, fy, cot, True),
                     "library": lambda: torch.ops.aten.grid_sampler_2d_backward(
                         cot_nchw, inp, grid, 0, 0, True, [True, True])})
-    row.update(ms=t["kernel"], library_ms=t["library"])
+    row.update(ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"])
+    # as check_warps's fused backward at C=1: image, coordinates and
+    # cotangent read once, d_img and the coordinate gradients written once
+    p = n * h * w
+    row["bound_ms"], row["bound_by"] = bound(2 * 4 * p + p * (16 + 4), p * (16 + 16))
     print(f"[warp branches] {row}")
     return row
 
@@ -768,25 +779,31 @@ def _splat_coords(g, n, h, w, device):
 def splat_agreement(x, y, h, w):
     """The splat kernel's map against the plain version's on the same
     coordinates [B, P]: the relative error, the pixels whose `occ > 0.95`
-    mask flips, and the plain map's pixels within the kernel's largest
-    error of 0.95 (where the atomics' summation order alone can flip it)."""
+    mask flips, the plain map's pixels within the kernel's largest error of
+    0.95 (where the atomics' summation order alone can flip it), and the
+    kernel's ms per call on them (the map's zeroing included)."""
     from endodav_tpu_torch.kernels import warp_matmul as W
 
     got, want = W.splat_cuda(x, y, h, w), W.splat_reference(x, y, h, w)
     err = (got - want).abs().max()
     return dict(rel_occ=_rel_err(got, want), flips=int(((got > 0.95) != (want > 0.95)).sum()),
-                near=int(((want - 0.95).abs() <= err).sum()))
+                near=int(((want - 0.95).abs() <= err).sum()),
+                ms=time_calls({"kernel": lambda: W.splat_cuda(x, y, h, w)})["kernel"])
 
 
 def check_splat(device, n=128, hw=TRAIN_HW):
     """The splat kernel against its plain version at the training step's
     occlusion-map shape: the map, its gradient, the 0.95 mask flips, the
-    times and the bound; the library yardstick is one
-    index_put_(accumulate=True) over the four corners' indices.  The flips
-    are also counted on flow-shaped coordinates (`_coords`: a smooth
+    times and the bound; the library yardsticks
+    are one index_put_(accumulate=True) (PyTorch's sorting path) and one
+    index_add_ (the atomic scatter the plain version uses) over the four
+    corners' indices and masses, `library_ms` the faster.  The flips are
+    also counted on flow-shaped coordinates (`_coords`: a smooth
     displacement plus noise, so the mass of neighbours overlaps), where a
     pixel may lie within rounding of 0.95; they are reported, not required
-    to be 0 (`run_training` requires 0 on the step's own coordinates)."""
+    to be 0 (`run_training` requires 0 on the step's own coordinates).
+    There the kernel is also timed (`flow_ms`): its atomics collide where
+    neighbouring pixels scatter."""
     from endodav_tpu_torch.kernels import warp_matmul as W
 
     h, w = hw
@@ -830,8 +847,12 @@ def check_splat(device, n=128, hw=TRAIN_HW):
     acc = torch.zeros(n * h * w, device=device)
     t = time_calls({"plain": lambda: W.splat_reference(x, y, h, w),
                     "kernel": lambda: W.splat_cuda(x, y, h, w),
-                    "library": lambda: acc.index_put_((idx,), vals, accumulate=True)})
-    row.update(ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"])
+                    "index_put_": lambda: acc.index_put_((idx,), vals, accumulate=True),
+                    "index_add_": lambda: acc.index_add_(0, idx, vals)})
+    row.update(ms=t["kernel"], plain_ms=t["plain"], index_put_ms=t["index_put_"],
+               index_add_ms=t["index_add_"])
+    row["library_call"] = min(("index_put_", "index_add_"), key=t.get)
+    row["library_ms"] = t[row["library_call"]]
     # coordinates read once, the map written once
     row["bound_ms"], row["bound_by"] = bound(4 * (2 * n * h * w + n * h * w), 40.0 * n * h * w)
     print(f"[splat] {row}")

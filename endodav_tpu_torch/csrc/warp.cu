@@ -58,7 +58,8 @@
 // warp 32 consecutive pixels of a row.  Either way a thread takes pixels of
 // two row steps, so 8 (C <= 2) or 2 pixels' corner gathers (__ldg) are in
 // flight a thread.  Rows that are not aligned to the runs (pw % 4 != 0)
-// take scalar accesses.
+// take scalar accesses.  The plane layout at C >= 3 has a kernel of its own
+// (grid_sample_fwd_walk_kernel, below).
 //
 // Backward: a block owns a tile of TILE_W x TILE_RS * BWD_PX output
 // pixels, one column a lane, so a warp reads coordinates and cotangent in
@@ -86,7 +87,9 @@
 // floats (interleaved) or C floats a plane apart (planes), so each corner
 // read touches C sectors instead of one, and the d_img box is C planes of
 // the box.  The same kernels serve both, with the layout a template
-// parameter; the output and the cotangent stay [Bg, P, C] in both.
+// parameter, except the forward at C >= 3, whose plane kernel walks the
+// grid elements of one image; the output and the cotangent stay [Bg, P, C]
+// in both.
 //
 // Atomics: the fused backward accumulates d_img (in shared memory, then in
 // d_img) and the splat accumulates occupancy with f32 atomicAdd.  The
@@ -294,6 +297,50 @@ grid_sample_fwd_kernel(const float* __restrict__ img, const float* __restrict__ 
 #pragma unroll
           for (int c = 0; c < C; ++c) store_out(o + (q[j] + k) * C + c, res[c]);
         }
+      }
+    }
+  }
+}
+
+// The plane forward at C >= 3 (the ENDODAV_WARP_CP route at colour
+// synthesis) gathers each corner's C values from C planes, C sectors where
+// the interleaved layout reads one.  Its block takes the tile of
+// FwdTile<C> (one pixel a lane, 32 x 16 pixels) for each of the img_tile
+// grid elements that sample one image in turn (blockIdx.y the image), so
+// the grids' corners, which fall on the same lines of the planes, meet in
+// L1.
+template <int C>
+__global__ void __launch_bounds__(THREADS)
+grid_sample_fwd_walk_kernel(const float* __restrict__ img, const float* __restrict__ fx,
+                            const float* __restrict__ fy, float* __restrict__ out, Shape s) {
+  using T = FwdTile<C>;
+  static_assert(T::V == 1 && T::TPR == 32, "one pixel a lane");
+  const int ty = blockIdx.x / s.tiles_x, tx = blockIdx.x - ty * s.tiles_x;
+  const int col = tx * T::TW + threadIdx.x % 32;
+  const int row0 = ty * T::RS * T::R + threadIdx.x / 32;
+  const int nimg = s.nbg / s.img_tile;
+  for (int bi = blockIdx.y; bi < nimg; bi += gridDim.y) {
+    const float* im = img + static_cast<size_t>(bi) * s.plane;
+    for (int bg = bi * s.img_tile; bg < (bi + 1) * s.img_tile; ++bg) {
+      // every coordinate first, then every gather, so all are in flight
+      const size_t row = static_cast<size_t>(bg) * s.p;
+      float xs[T::R], ys[T::R];
+#pragma unroll
+      for (int j = 0; j < T::R; ++j) {
+        const int r = row0 + j * T::RS;
+        const bool ok = r < s.ph && col < s.pw;
+        xs[j] = ok ? __ldcs(fx + row + r * s.pw + col) : 0.f;
+        ys[j] = ok ? __ldcs(fy + row + r * s.pw + col) : 0.f;
+      }
+      float res[T::R][C];
+#pragma unroll
+      for (int j = 0; j < T::R; ++j) sample<C, true>(im, xs[j], ys[j], s, res[j]);
+#pragma unroll
+      for (int j = 0; j < T::R; ++j) {
+        const int r = row0 + j * T::RS;
+        if (r >= s.ph || col >= s.pw) continue;
+#pragma unroll
+        for (int c = 0; c < C; ++c) store_out(out + (row + r * s.pw + col) * C + c, res[j][c]);
       }
     }
   }
@@ -532,10 +579,17 @@ void launch_fwd(const float* img, const float* fx, const float* fy, float* out, 
                 cudaStream_t st) {
   using T = FwdTile<C>;
   s.tiles_x = cdiv(s.pw, T::TW);
-  // vector access needs rows of whole runs and aligned pointers
-  s.vec = s.pw % T::V == 0 && aligned(fx, T::V) && aligned(fy, T::V) && aligned(out, T::V * C);
-  grid_sample_fwd_kernel<C, PLANES><<<grid_of(s, FwdTile<C>::RS * FwdTile<C>::R), THREADS, 0,
-                                      st>>>(img, fx, fy, out, s);
+  if constexpr (PLANES && C >= 3) {  // the images on y
+    const int nimg = s.nbg / s.img_tile;
+    dim3 grid = grid_of(s, T::RS * T::R);
+    grid.y = static_cast<unsigned>(nimg < 65535 ? nimg : 65535);
+    grid_sample_fwd_walk_kernel<C><<<grid, THREADS, 0, st>>>(img, fx, fy, out, s);
+  } else {
+    // vector access needs rows of whole runs and aligned pointers
+    s.vec = s.pw % T::V == 0 && aligned(fx, T::V) && aligned(fy, T::V) && aligned(out, T::V * C);
+    grid_sample_fwd_kernel<C, PLANES><<<grid_of(s, FwdTile<C>::RS * FwdTile<C>::R), THREADS, 0,
+                                        st>>>(img, fx, fy, out, s);
+  }
 }
 
 template <int C>

@@ -147,7 +147,8 @@ def splat_reference(x, y, height: int, width: int):
         dx, dy = x - cx, y - cy
         val = (1.0 - torch.where(dx >= 0, dx, -dx)) * (1.0 - torch.where(dy >= 0, dy, -dy))
         val = torch.where(bad, torch.zeros_like(val), val)
-        idx = (base + (cy * width + cx).long()).reshape(-1)
+        # a NaN coordinate's corners are all outside (mass 0): any index will do
+        idx = (base + (cy * width + cx).nan_to_num(0).long()).reshape(-1)
         out = out.index_add(0, idx, val.reshape(-1))
     return out.reshape(b, height, width)
 

@@ -209,6 +209,71 @@ def test_splat_kernel_matches_plain():
     assert (ys.grad - yr.grad).abs().max().item() <= WARP_TOL
 
 
+def _splat_raster(rng, b, h, w, disp=0.0):
+    """Coordinates [b, h * w] of a raster source on an h x w map: the pixel
+    grid plus 1.5 px of noise and, in the left half, up to +-disp px."""
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    wild = disp * (xx < w // 2)
+    x = xx + rng.normal(0, 1.5, (b, h, w)) + wild * rng.uniform(-1, 1, (b, h, w))
+    y = yy + rng.normal(0, 1.5, (b, h, w)) + wild * rng.uniform(-1, 1, (b, h, w))
+    return x.reshape(b, -1), y.reshape(b, -1)
+
+
+# (map [h, w], source pixels P or None for a raster source of h x w,
+# displacement): a raster moved by a small flow, a raster whose left half
+# scatters by up to +-40 px on a 75-column grid, and P != H * W
+SPLAT_CASES = [((64, 96), None, 0.0), ((70, 75), None, 40.0), ((40, 50), 3001, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,p,disp", SPLAT_CASES)
+def test_splat_matches_plain_on_rasters_and_scatter(hw, p, disp):
+    """The splat kernel on the coordinates its callers send (a raster moved
+    by a flow) and on scattered ones: the map against the plain version,
+    no 0.95 flips, one launch a call."""
+    dev = _card()
+    rng = np.random.default_rng(hw[0] + int(disp))
+    h, w = hw
+    b = 3
+    if p is None:
+        x, y = _splat_raster(rng, b, h, w, disp)
+    else:
+        x, y = rng.uniform(-2, w + 1, (b, p)), rng.uniform(-2, h + 1, (b, p))
+    x, y = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (x, y))
+    before = W.splat_cuda.launches
+    got = W.splat_mm(x, y, h, w)
+    assert W.splat_cuda.launches == before + 1
+    want = W.splat_reference(x, y, h, w)
+    assert _rel(got, want) <= ATOMIC_RTOL
+    assert int(((got > 0.95) != (want > 0.95)).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,tile,out_hw", [(3, 4, (20, 50)), (3, 3, (11, 13)), (3, 5, (21, 36)),
+                                           (3, 1, (33, 64)), (4, 2, (20, 50))])
+def test_plane_forward_at_three_channels_and_more(c, tile, out_hw):
+    """The plane forward at C >= 3, where a block walks the img_tile grid
+    elements of one image (blockIdx.y the image): grids whose rows do not
+    fill the last 32-column tile (50, 13, 36 columns), outputs of grids
+    that start off a 16-byte boundary (11 x 13 and 21 x 36 pixels of 3
+    floats), img_tile 1 to 5; against the planes' plain version and the
+    interleaved kernel."""
+    dev = _card()
+    rng = np.random.default_rng(c * 100 + tile)
+    b, h, w = 3, 37, 53
+    img = torch.from_numpy(rng.uniform(0, 1, (b, h, w, c)).astype(np.float32)).to(dev)
+    fx = torch.from_numpy(rng.uniform(-3, w + 2, (b * tile, *out_hw)).astype(np.float32)).to(dev)
+    fy = torch.from_numpy(rng.uniform(-3, h + 2, (b * tile, *out_hw)).astype(np.float32)).to(dev)
+    planes = W.to_planes(img)
+    before = W.grid_sample_fwd_cp_cuda.launches
+    got = W.grid_sample_fwd_cp_cuda(planes, fx, fy, False, tile)
+    torch.cuda.synchronize()
+    assert W.grid_sample_fwd_cp_cuda.launches == before + 1
+    for want in (W.grid_sample_planes_reference(planes, fx, fy, False, tile),
+                 W.grid_sample_fwd_cuda(img, fx, fy, False, tile)):
+        assert (got - want).abs().max().item() <= WARP_TOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_gradient_matches_plain(dtype):
