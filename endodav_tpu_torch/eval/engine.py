@@ -126,7 +126,10 @@ def depth_window_forward(model: EndoDAV):
     ``ENDODAV_INT8`` is set either way), on a shallow copy of ``model`` so
     that the decision stays with this forward and no env var is written;
     and ``fwd.dedup``, a `DedupWindowForward` where `dedup_by_default`
-    picks it (else None)."""
+    picks it (else None).  A model built in bf16 (``EndoDAV(...,
+    dtype=torch.bfloat16)`` or ``model.clone(dtype=torch.bfloat16)``, as the
+    TPU benchmark builds its headline) serves through both in bf16, int8
+    included at vitl."""
     if model.encoder == "vitl" and model.lora_type == "none" and "ENDODAV_INT8" not in os.environ:
         model = copy.copy(model)
         model.int8_serving = True

@@ -26,7 +26,9 @@ encode and the temporal head.  Float frames are then normalised frame by
 frame (the [0, 255] heuristic of the window path is per window).
 
 The model runs on ``device``: CUDA unless the caller passes the CPU;
-asking for CUDA on a machine without a GPU raises.
+asking for CUDA on a machine without a GPU raises.  Each fired window's
+depth crosses to the host in ``transfer_dtype`` (JAX `eval/streaming.py:
+85,124,126`), whatever the model's dtype.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from endodav_tpu_torch.eval.metrics import compute_scale_and_shift, interpolate_frames
-from endodav_tpu_torch.eval.video_inference import (frame_scale, keep_aspect_size,
+from endodav_tpu_torch.eval.video_inference import (frame_scale, keep_aspect_size, torch_dtype,
                                                     upload_resized, window_chunk_forward)
 from endodav_tpu_torch.models.endodav import INFER_LEN, INTERP_LEN, KEYFRAMES, OVERLAP
 from endodav_tpu_torch.utils.precision import set_f32_policy
@@ -57,13 +59,14 @@ class DepthStreamer:
       offline ``image_shape``).
     dedup: an optional `DedupWindowForward` of the same model.
     device: where the model runs ("cuda" by default).
+    transfer_dtype: the numpy dtype of the window outputs' copy to the host.
 
     Output frames are stitched raw disparity [H, W] float32 at source
     resolution, the offline path's rows.
     """
 
     def __init__(self, forward_windows: Callable | None, image_shape=(224, 280), dedup=None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", transfer_dtype=np.float32):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DepthStreamer: no CUDA device is available; pass device='cpu' "
@@ -74,6 +77,7 @@ class DepthStreamer:
         self._fwd = forward_windows
         self._image_shape = tuple(image_shape)
         self._dedup = dedup
+        self._transfer = torch_dtype(transfer_dtype)
         self._frames: dict[int, np.ndarray] = {}  # source index -> frame
         self._encoded: dict[int, tuple] = {}      # source index -> per-frame encode results
         self._n_pushed = 0
@@ -97,9 +101,9 @@ class DepthStreamer:
         self._src_hw = (fh, fw)
         self._resized_hw = keep_aspect_size(fh, fw, *self._image_shape)
         if self._dedup is not None:
-            self._head = self._dedup.head_for(fh, fw)
+            self._head = self._dedup.head_for(fh, fw, self._transfer)
         else:
-            self._run = window_chunk_forward(self._fwd, fh, fw)
+            self._run = window_chunk_forward(self._fwd, fh, fw, self._transfer)
 
     def _window_idx(self, n_clamp: int) -> np.ndarray:
         """Source indices of window `self._win`, clamped to n_clamp - 1: the
@@ -123,7 +127,7 @@ class DepthStreamer:
                 stack = stack.astype(np.float32)
             win = upload_resized(stack, frame_scale(stack), th, tw, self.device)
             out = self._run(win[None])
-        out = out.float().cpu().numpy()  # [INFER_LEN, fh, fw]
+        out = out.cpu().float().numpy()  # [INFER_LEN, fh, fw]
 
         self._prev_idx = idx
         self._win += 1

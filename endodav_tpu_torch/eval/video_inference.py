@@ -13,6 +13,16 @@ rides 4x smaller than f32), are scaled to [0, 1] and bicubic-resized to
 the keep-aspect size on the device; the model's own bilinear
 `preprocess` then takes them to ``image_shape``.  The two resizes stay
 separate, as in the JAX package.
+
+The serving options of the JAX function (`endodav_tpu/eval/
+video_inference.py:511-671`): ``transfer_dtype`` is the dtype in which
+the window outputs (host stitch) or the stitched video (device stitch)
+cross to the host, ``np.float16`` in the TPU benchmark's headline; under
+the device stitch the chunks stay f32 on the device.  ``sequential=True``
+is the benchmark's baseline, the reference's loop: one window a chunk on
+the window path, each window's output copied to the host before the next
+is sent.  Whatever the model's dtype (``EndoDAV.dtype``), the result is
+the disparity of the f32 path; a bf16 model's dedup results stay bf16.
 """
 
 from __future__ import annotations
@@ -32,7 +42,12 @@ from endodav_tpu_torch.utils.envflags import env_auto, env_on
 
 __all__ = ["keep_aspect_size", "window_indices", "stitch_plan", "infer_video_depth",
            "DedupWindowForward", "dedup_wins", "dedup_by_default", "frame_scale",
-           "upload_resized", "window_chunk_forward"]
+           "upload_resized", "window_chunk_forward", "torch_dtype"]
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype (``np.float16`` -> ``torch.float16``)."""
+    return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
 class DedupWindowForward:
@@ -50,7 +65,8 @@ class DedupWindowForward:
     head then runs the whole decode per window slot (vitl, whose maps are
     1.8x its taps); ``ENDODAV_DEDUP_PREFIX`` overrides.  Unlike the JAX
     package, which flattens the maps to 2D rows for the TPU's tiling, the
-    port keeps them in their [frames, H, W, C] layout.
+    port keeps them in their [frames, H, W, C] layout, in the model's
+    dtype.
     """
 
     def __init__(self, model):
@@ -79,9 +95,10 @@ class DedupWindowForward:
         96 frames from 96 up, else INFER_LEN)."""
         return 96 if n_frames >= 96 else INFER_LEN
 
-    def head_for(self, fh: int, fw: int):
+    def head_for(self, fh: int, fw: int, out_dtype: torch.dtype = torch.float32):
         """head(widx, *per_frame) -> [len(widx), fh, fw] disparity of the
-        window slots ``widx`` (source-frame indices, windows of INFER_LEN)."""
+        window slots ``widx`` (source-frame indices, windows of INFER_LEN),
+        in ``out_dtype``."""
         model = self.model
 
         def head(widx: torch.Tensor, *per_frame):
@@ -94,7 +111,7 @@ class DedupWindowForward:
                     taps = [(tok[:, i], cls[:, i]) for i in range(tok.shape[1])]
                     out = model.decode(taps, INFER_LEN)
                 disp = resize2d(out[("disp", 0)], (fh, fw), "bilinear", align_corners=True)
-                return disp[..., 0]
+                return disp[..., 0].to(out_dtype)
 
         return head
 
@@ -198,17 +215,19 @@ def stitch_plan(n_frames: int, num_windows: int):
     return win_a, slot_a, win_b, slot_b, wgt_b
 
 
-def _device_stitch(depth_chunks, num_windows: int, n: int, fh: int, fw: int) -> np.ndarray:
-    """The stitch on the device (`endodav_tpu/eval/video_inference.py:
-    415-475`): per-boundary fit statistics, the absolute scale/shift of
-    each window composed in order, then the gather and cross-fade blend;
-    only the stitched [n, fh, fw] video comes back to the host.  Unlike
-    `_stitch`, the previous window's tail enters the fit unclamped, as in
-    JAX."""
+def _device_stitch(depth_chunks, num_windows: int, n: int, fh: int, fw: int,
+                   out_dtype: torch.dtype = torch.float32,
+                   device: torch.device | None = None) -> np.ndarray:
+    """The stitch on ``device`` (default: the chunks'; `endodav_tpu/eval/
+    video_inference.py:415-475`): per-boundary fit statistics, the
+    absolute scale/shift of each window composed in order, then the gather
+    and cross-fade blend in f32; only the stitched [n, fh, fw] video comes
+    back to the host, in ``out_dtype``, returned as f32.  Unlike `_stitch`,
+    the previous window's tail enters the fit unclamped, as in JAX."""
     win_a, slot_a, win_b, slot_b, wgt_b = stitch_plan(n, num_windows)
     align_len = OVERLAP - INTERP_LEN
-    dw = torch.cat(list(depth_chunks))[: num_windows * INFER_LEN].float()
-    device = dw.device
+    device = depth_chunks[0].device if device is None else device
+    dw = torch.cat([c.to(device) for c in depth_chunks])[: num_windows * INFER_LEN].float()
     dw = dw.reshape(num_windows, INFER_LEN, fh, fw)
     sc = torch.ones(num_windows, device=device)
     sh = torch.zeros(num_windows, device=device)
@@ -237,7 +256,7 @@ def _device_stitch(depth_chunks, num_windows: int, n: int, fh: int, fw: int) -> 
 
     w = torch.from_numpy(wgt_b).to(device)[:, None, None]
     out = fetch(win_a, slot_a) * (1.0 - w) + fetch(win_b, slot_b) * w
-    return out.cpu().numpy()
+    return out.to(out_dtype).cpu().float().numpy()
 
 
 def frame_scale(frames: np.ndarray) -> float:
@@ -264,15 +283,18 @@ def upload_resized(frames: np.ndarray, scale: float, th: int, tw: int,
 
 
 def window_chunk_forward(forward_windows: Callable[[torch.Tensor], torch.Tensor], fh: int,
-                         fw: int) -> Callable[[torch.Tensor], torch.Tensor]:
+                         fw: int, out_dtype: torch.dtype = torch.float32
+                         ) -> Callable[[torch.Tensor], torch.Tensor]:
     """[C, INFER_LEN, th, tw, 3] windows -> [C*INFER_LEN, fh, fw] disparity
-    upsampled (bilinear, align_corners=True) to the source size: JAX's
-    `_chunk_fn(forward_windows, C, ...)`; the streamer runs it with C=1."""
+    upsampled (bilinear, align_corners=True, in the model's dtype) to the
+    source size and cast to ``out_dtype``: JAX's `_chunk_fn(forward_windows,
+    C, ..., out_dtype)`; the streamer runs it with C=1."""
 
     def run(win: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             disp = forward_windows(win)
-            return resize2d(disp, (fh, fw), "bilinear", align_corners=True)[..., 0]
+            disp = resize2d(disp, (fh, fw), "bilinear", align_corners=True)
+            return disp[..., 0].to(out_dtype)
 
     return run
 
@@ -285,6 +307,8 @@ def infer_video_depth(
     device: torch.device | str = "cuda",
     stitch: str = "host",
     dedup: DedupWindowForward | None = None,
+    transfer_dtype=np.float32,
+    sequential: bool = False,
 ) -> np.ndarray:
     """Full-video sigmoid-disparity inference.
 
@@ -295,8 +319,16 @@ def infer_video_depth(
     dedup: a `DedupWindowForward`: each source frame is encoded once, in
       batches of `encode_batch_for(N)` frames (the last one padded with the
       last frame), and each chunk of windows (the last one trimmed, not
-      padded) runs the head alone; ``ENDODAV_NO_DEDUP`` turns it off.
-    Returns the stitched raw disparity [N, H, W] at source resolution.
+      padded) runs the head alone; ``ENDODAV_NO_DEDUP`` and ``sequential``
+      turn it off.
+    transfer_dtype: the numpy dtype in which depth crosses to the host: the
+      window outputs under the host stitch, the stitched video under the
+      device stitch (whose chunks stay f32).
+    sequential: one window a chunk, on the window path, each synchronised
+      by its copy to the host before the next runs (the baseline of the
+      TPU benchmark, `bench.py:129-132`).
+    Returns the stitched raw disparity [N, H, W] at source resolution, as
+    JAX's: float64 from the host stitch, f32 from the device stitch.
     """
     if stitch not in ("host", "device"):
         raise ValueError(f"stitch must be 'host' or 'device', got {stitch!r}")
@@ -309,9 +341,13 @@ def infer_video_depth(
 
     idx = window_indices(n)
     num_windows = idx.shape[0]
+    if sequential:
+        chunk_windows = 1
+    transfer = torch_dtype(transfer_dtype)
+    chunk_dtype = torch.float32 if stitch == "device" else transfer
     outs = []
     with torch.inference_mode():
-        if dedup is not None and not env_on("ENDODAV_NO_DEDUP"):
+        if dedup is not None and not sequential and not env_on("ENDODAV_NO_DEDUP"):
             fb = dedup.encode_batch_for(n)
             pad_fidx = np.minimum(np.arange(-(-n // fb) * fb), n - 1)
             parts = [dedup.encode(upload_resized(frames[pad_fidx[b0:b0 + fb]], scale, th, tw,
@@ -319,7 +355,7 @@ def infer_video_depth(
                      for b0 in range(0, len(pad_fidx), fb)]
             per_frame = [torch.cat(ps) if len(ps) > 1 else ps[0] for ps in zip(*parts)]
             del parts
-            head = dedup.head_for(fh, fw)
+            head = dedup.head_for(fh, fw, chunk_dtype)
             for c0 in range(0, num_windows, chunk_windows):
                 w_idx = torch.from_numpy(idx[c0:c0 + chunk_windows].reshape(-1)).to(device)
                 outs.append(head(w_idx, *per_frame))
@@ -330,13 +366,14 @@ def infer_video_depth(
             for s0 in range(0, n, INFER_LEN):
                 resized[s0:s0 + INFER_LEN] = upload_resized(frames[s0:s0 + INFER_LEN], scale, th,
                                                             tw, device)
-            run = window_chunk_forward(forward_windows, fh, fw)
+            run = window_chunk_forward(forward_windows, fh, fw, chunk_dtype)
             for c0 in range(0, pad_to, chunk_windows):
                 w_idx = torch.from_numpy(idx_padded[c0:c0 + chunk_windows].reshape(-1)).to(device)
                 win = resized.index_select(0, w_idx).reshape(chunk_windows, INFER_LEN, th, tw, 3)
-                outs.append(run(win))
+                out = run(win)
+                outs.append(out.cpu() if sequential else out)
         if stitch == "device":
-            return _device_stitch(outs, num_windows, n, fh, fw)
-        outs = [o.float().cpu() for o in outs]
+            return _device_stitch(outs, num_windows, n, fh, fw, transfer, device)
+        outs = [o.cpu().float() for o in outs]
     depth_windows = torch.cat(outs).numpy()[: num_windows * INFER_LEN]
     return _stitch(depth_windows.reshape(num_windows, INFER_LEN, fh, fw), n)

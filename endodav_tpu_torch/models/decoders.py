@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from endodav_tpu_torch.models.vit import conv_nhwc
+from endodav_tpu_torch.models.cast import conv_nhwc
 from endodav_tpu_torch.ops.resize import resize2d
 
 __all__ = ["PoseDecoder", "IntrinsicsHead", "PositionDecoder", "TransformDecoder"]

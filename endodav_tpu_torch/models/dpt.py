@@ -14,6 +14,13 @@ runs the fused CUDA kernel under ``ENDODAV_FUSED_RCU``, exactly where JAX
 routes its Pallas kernel (`endodav_tpu/models/dpt.py:77-82`): every RCU of
 the vits head (features 64), none of vitl's (256).  ``pos_embedding_type``
 ("ape" or "rope") goes to the four motion modules, as in JAX.
+
+``dtype`` is the compute dtype of JAX's ``DPTDecoder.dtype``: every
+convolution (the projections, the resize stages, the scratch convs, the
+RCUs, the fusion out-convs and the heads) casts its input and weights to
+it (`models/cast.py`), and the four motion modules take it.  The plain
+RCU adds its skip uncast, as JAX's ``rcu_reference(x.astype(dtype), ...,
+skip=x)`` (:99-101); the fused one takes x as it comes (:82-85).
 """
 
 from __future__ import annotations
@@ -25,8 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from endodav_tpu_torch.kernels.fused_rcu import MAX_CHANNELS, fused_rcu
+from endodav_tpu_torch.models.cast import conv_nhwc
 from endodav_tpu_torch.models.motion import TemporalModule
-from endodav_tpu_torch.models.vit import conv_nhwc
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.utils.envflags import env_on
 
@@ -40,9 +47,10 @@ def _up(x, size):
 class ResidualConvUnit(nn.Module):
     """relu -> conv3x3 -> relu -> conv3x3, plus the skip."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.features = features
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
 
@@ -50,8 +58,8 @@ class ResidualConvUnit(nn.Module):
         if (not train and self.features <= MAX_CHANNELS and x.shape[-1] == self.features
                 and env_on("ENDODAV_FUSED_RCU")):
             return fused_rcu(x, self.conv1, self.conv2)
-        y = conv_nhwc(self.conv1, F.relu(x))
-        y = conv_nhwc(self.conv2, F.relu(y))
+        y = conv_nhwc(self.conv1, F.relu(x.to(self.dtype)), self.dtype)
+        y = conv_nhwc(self.conv2, F.relu(y), self.dtype)
         return y + x
 
 
@@ -61,11 +69,12 @@ class FeatureFusionBlock(nn.Module):
     pyramid top (refinenet4) never receives a skip and has no
     resConfUnit1."""
 
-    def __init__(self, features: int, has_skip: bool = True):
+    def __init__(self, features: int, has_skip: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if has_skip:
-            self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
+            self.resConfUnit1 = ResidualConvUnit(features, dtype)
+        self.resConfUnit2 = ResidualConvUnit(features, dtype)
         self.out_conv = nn.Conv2d(features, features, 1)
 
     def forward(self, x, skip=None, size: tuple[int, int] | None = None, train: bool = False):
@@ -74,37 +83,41 @@ class FeatureFusionBlock(nn.Module):
         x = self.resConfUnit2(x, train)
         if size is None:
             size = (x.shape[1] * 2, x.shape[2] * 2)
-        return conv_nhwc(self.out_conv, _up(x, tuple(size)))
+        return conv_nhwc(self.out_conv, _up(x, tuple(size)), self.dtype)
 
 
 class HeadDepth(nn.Module):
     """conv3x3 -> 2x bilinear (AC=True) -> conv3x3 -> relu -> conv1x1;
     raw logits (torch Sequential indices 0/2/4)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.head = nn.ModuleList([
             nn.Conv2d(features, features // 2, 3, padding=1), nn.Identity(),
             nn.Conv2d(features // 2, 32, 3, padding=1), nn.ReLU(),
             nn.Conv2d(32, 1, 1)])
 
     def forward(self, x):
-        x = conv_nhwc(self.head[0], x)
+        dt = self.dtype
+        x = conv_nhwc(self.head[0], x, dt)
         x = _up(x, (x.shape[1] * 2, x.shape[2] * 2))
-        x = F.relu(conv_nhwc(self.head[2], x))
-        return conv_nhwc(self.head[4], x)
+        x = F.relu(conv_nhwc(self.head[2], x, dt))
+        return conv_nhwc(self.head[4], x, dt)
 
 
 class Scratch(nn.Module):
-    def __init__(self, features: int, out_channels: Sequence[int], conv_head: bool):
+    def __init__(self, features: int, out_channels: Sequence[int], conv_head: bool,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         for i in range(4):
             setattr(self, f"layer{i + 1}_rn",
                     nn.Conv2d(out_channels[i], features, 3, padding=1, bias=False))
-        self.refinenet1 = FeatureFusionBlock(features)
-        self.refinenet2 = FeatureFusionBlock(features)
-        self.refinenet3 = FeatureFusionBlock(features)
-        self.refinenet4 = FeatureFusionBlock(features, has_skip=False)
+        self.refinenet1 = FeatureFusionBlock(features, dtype=dtype)
+        self.refinenet2 = FeatureFusionBlock(features, dtype=dtype)
+        self.refinenet3 = FeatureFusionBlock(features, dtype=dtype)
+        self.refinenet4 = FeatureFusionBlock(features, has_skip=False, dtype=dtype)
         if not conv_head:
             self.output_conv1 = nn.Conv2d(features, features // 2, 3, padding=1)
             self.output_conv2 = nn.ModuleList([
@@ -113,9 +126,10 @@ class Scratch(nn.Module):
 
     def output_head(self, x, out_hw):
         """The single output-conv head: 3x3 -> upsample -> 3x3 -> relu -> 1x1 -> relu."""
-        x = _up(conv_nhwc(self.output_conv1, x), out_hw)
-        x = F.relu(conv_nhwc(self.output_conv2[0], x))
-        return F.relu(conv_nhwc(self.output_conv2[2], x))
+        dt = self.dtype
+        x = _up(conv_nhwc(self.output_conv1, x, dt), out_hw)
+        x = F.relu(conv_nhwc(self.output_conv2[0], x, dt))
+        return F.relu(conv_nhwc(self.output_conv2[2], x, dt))
 
 
 class DPTDecoder(nn.Module):
@@ -124,8 +138,9 @@ class DPTDecoder(nn.Module):
                  num_frames: int = 32, conv_head: bool = True, inv_sigmoid: bool = False,
                  out_sigmoid: bool = False, temporal_lora_variant: str = "none",
                  lora_rank: int = 4, lora_alpha: float | None = None,
-                 pos_embedding_type: str = "ape"):
+                 pos_embedding_type: str = "ape", dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv_head = conv_head
         self.inv_sigmoid = inv_sigmoid
         self.out_sigmoid = out_sigmoid
@@ -138,28 +153,31 @@ class DPTDecoder(nn.Module):
             nn.Conv2d(out_channels[3], out_channels[3], 3, stride=2, padding=1)])
         motion = lambda ch: TemporalModule(  # noqa: E731
             ch, temporal_max_len=num_frames, pos_embedding_type=pos_embedding_type,
-            lora_variant=temporal_lora_variant, lora_rank=lora_rank, lora_alpha=lora_alpha)
+            lora_variant=temporal_lora_variant, lora_rank=lora_rank, lora_alpha=lora_alpha,
+            dtype=dtype)
         self.motion_modules = nn.ModuleList([
             motion(out_channels[2]), motion(out_channels[3]), motion(features),
             motion(features)])
-        self.scratch = Scratch(features, out_channels, conv_head)
+        self.scratch = Scratch(features, out_channels, conv_head, dtype)
         if conv_head:
             for i in (1, 2, 3, 4):
-                setattr(self, f"conv_depth_{i}", HeadDepth(features))
+                setattr(self, f"conv_depth_{i}", HeadDepth(features, dtype))
 
     def prefix(self, taps, patch_hw: tuple[int, int]):
         """Per-frame front half: taps -> (layer_1_rn, layer_2_rn, layer_3, layer_4)."""
         ph, pw = patch_hw
+        dt = self.dtype
         maps = []
         for i, (tokens, _cls) in enumerate(taps):
             x = tokens.reshape(tokens.shape[0], ph, pw, tokens.shape[-1])
-            x = conv_nhwc(self.projects[i], x)
+            x = conv_nhwc(self.projects[i], x, dt)
             if i != 2:
-                x = conv_nhwc(self.resize_layers[i], x)
+                x = conv_nhwc(self.resize_layers[i], x, dt)
             maps.append(x)
         layer_1, layer_2, layer_3, layer_4 = maps
         s = self.scratch
-        return conv_nhwc(s.layer1_rn, layer_1), conv_nhwc(s.layer2_rn, layer_2), layer_3, layer_4
+        return (conv_nhwc(s.layer1_rn, layer_1, dt), conv_nhwc(s.layer2_rn, layer_2, dt),
+                layer_3, layer_4)
 
     def suffix(self, maps, frames: int, train: bool = False):
         """Window half: temporal modules + fusion pyramid + heads; ``train``
@@ -169,8 +187,8 @@ class DPTDecoder(nn.Module):
         s = self.scratch
         layer_3 = self.motion_modules[0](layer_3, frames, train)
         layer_4 = self.motion_modules[1](layer_4, frames, train)
-        layer_3_rn = conv_nhwc(s.layer3_rn, layer_3)
-        layer_4_rn = conv_nhwc(s.layer4_rn, layer_4)
+        layer_3_rn = conv_nhwc(s.layer3_rn, layer_3, self.dtype)
+        layer_4_rn = conv_nhwc(s.layer4_rn, layer_4, self.dtype)
 
         path_4 = s.refinenet4(layer_4_rn, None, layer_3_rn.shape[1:3], train)
         path_4 = self.motion_modules[2](path_4, frames, train)

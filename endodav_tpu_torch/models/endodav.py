@@ -15,6 +15,14 @@ graph) asks the trunk for its int8 GEMMs; ``ENDODAV_INT8`` overrides it.
 A shallow copy with the flag changed shares every weight with the
 original, the port's counterpart of flax's ``model.clone(int8_serving=
 True)``.
+
+``dtype`` is the compute dtype of JAX's ``EndoDAV.dtype`` (:120), passed
+to the trunk and the head: f32 by default; ``torch.bfloat16`` serves as
+the TPU benchmark's headline does (`bench.py:96-105`).  The parameters
+stay f32 at either dtype (flax's ``param_dtype``), so the weights of an
+f32 model load as they are, and `clone(dtype=torch.bfloat16)` makes the
+bf16 model over the same parameter tensors.  `preprocess` stays in the
+input's dtype (JAX :158-161).
 """
 
 from __future__ import annotations
@@ -68,9 +76,12 @@ class EndoDAV(nn.Module):
                  residual_block_indexes: Sequence[int] = (), include_cls_token: bool = True,
                  num_frames: int = 32, inv_sigmoid: bool = False, temporal_lora: bool = False,
                  conv_head: bool = True, out_sigmoid: bool = False,
-                 int8_serving: bool = False, pos_embedding_type: str = "ape"):
+                 int8_serving: bool = False, pos_embedding_type: str = "ape",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         self.encoder = encoder
+        self.dtype = dtype
         self.lora_type = lora_type
         self.int8_serving = int8_serving
         self.image_shape = tuple(image_shape)
@@ -80,15 +91,25 @@ class EndoDAV(nn.Module):
         self.pretrained = DinoViT(
             **vit_cfg, residual_block_indexes=tuple(residual_block_indexes),
             include_cls_token=include_cls_token, lora_variant=lora_type, lora_rank=r,
-            lora_alpha=alpha)
+            lora_alpha=alpha, dtype=dtype)
         self.head = DPTDecoder(
             in_channels=vit_cfg["embed_dim"], features=cfg["features"],
             out_channels=cfg["out_channels"], num_frames=num_frames, conv_head=conv_head,
             inv_sigmoid=inv_sigmoid, out_sigmoid=out_sigmoid,
             temporal_lora_variant=lora_type if temporal_lora else "none", lora_rank=r,
-            lora_alpha=alpha, pos_embedding_type=pos_embedding_type)
+            lora_alpha=alpha, pos_embedding_type=pos_embedding_type, dtype=dtype)
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN), persistent=False)
         self.register_buffer("std", torch.tensor(IMAGENET_STD), persistent=False)
+
+    def clone(self, **changes) -> "EndoDAV":
+        """This model with constructor arguments changed (flax's
+        ``Module.clone``), over the same parameter tensors and on the same
+        device: ``model.clone(dtype=torch.bfloat16)`` serves these weights
+        in bf16."""
+        device = next(self.parameters()).device
+        model = EndoDAV(**{**self.config, "int8_serving": self.int8_serving, **changes})
+        model.load_state_dict(self.state_dict(), strict=True, assign=True)
+        return model.to(device).train(self.training)
 
     @property
     def patch_hw(self) -> tuple[int, int]:

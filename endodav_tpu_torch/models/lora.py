@@ -5,6 +5,11 @@ needs: ``none``, ``lora`` and ``dvlora`` (the CLI default).  Parameter
 names follow the reference's state-dict keys: ``weight`` [out, in],
 ``bias`` [out], ``lora_A`` [r, in], ``lora_B`` [out, r], and for DV-LoRA
 ``lora_U`` [r, 1] and ``lora_V`` [out, 1].
+
+``dtype`` is the compute dtype of the JAX field of the same name: the
+parameters stay f32, the input and the (f32-formed) adapter factors are
+cast to it, and an adapted layer returns its input's dtype (JAX
+`models/lora.py:86-147`).  The merge stays in f32.
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ class LoRADense(nn.Module):
     """
 
     def __init__(self, in_features: int, out_features: int, r: int = 4,
-                 lora_alpha: float | None = None, variant: str = "lora"):
+                 lora_alpha: float | None = None, variant: str = "lora",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if variant not in VARIANTS:
             raise ValueError(f"LoRA variant {variant!r} is not ported (ported: {VARIANTS})")
         self.variant = variant
@@ -48,15 +55,17 @@ class LoRADense(nn.Module):
     def forward(self, x: torch.Tensor, quant_int8: bool = False) -> torch.Tensor:
         """``quant_int8`` (resolved by the caller) routes the plain layer
         through the int8 serving GEMM; adapted variants ignore it."""
+        dt = self.dtype
+        xd = x.to(dt)
         if self.variant == "none" and quant_int8:
-            return int8_dense(x, self.weight, self.bias)
-        y = F.linear(x, self.weight, self.bias)
+            return int8_dense(xd, self.weight, self.bias, out_dtype=dt)
+        y = F.linear(xd, self.weight.to(dt), self.bias.to(dt))
         if self.variant == "none":
             return y
         a, b = self.lora_A, self.lora_B
         if self.variant == "dvlora":
             a, b = a * self.lora_U, b * self.lora_V
-        return y + F.linear(F.linear(x, a), b) * self.scaling
+        return (y + F.linear(F.linear(xd, a.to(dt)), b.to(dt)) * self.scaling).to(x.dtype)
 
 
 def merge_lora_params(state_dict: dict[str, torch.Tensor], variant: str, r: int,

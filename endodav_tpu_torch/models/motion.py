@@ -24,6 +24,12 @@ keeps its own.  ``pos_embedding_type="rope"`` adds no pe and rotates the
 channel pairs of q and k instead (`motion.py:92-106, 139-158`); JAX fuses
 APE only (`_use_fused_block`), so a RoPE module takes the unfused route at
 serving too.
+
+``dtype`` is the compute dtype of JAX's ``TemporalModule.dtype``: the
+GroupNorm, proj_in/proj_out, the sub-blocks' LayerNorms and projections
+and the GEGLU feed-forward cast where flax does (`models/cast.py`).  The
+fused route hands the kernel x as it comes, the LayerNorm parameters and
+pe in f32 and the projections (with bo) in ``dtype`` (JAX :130-137).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch.nn.functional as F
 
 from endodav_tpu_torch.kernels.fused_temporal_block import fused_temporal_block
 from endodav_tpu_torch.kernels.temporal_attention import temporal_attention
+from endodav_tpu_torch.models.cast import dense, group_norm, layer_norm
 from endodav_tpu_torch.models.lora import LoRADense
 
 __all__ = ["TemporalModule", "sinusoidal_time_encoding", "rope_tables", "POS_EMBEDDINGS"]
@@ -76,11 +83,12 @@ class TemporalAttention(nn.Module):
     """Self-attention along T as one residual sub-block."""
 
     def __init__(self, dim: int, num_heads: int = 8, temporal_max_len: int = 32,
-                 pos_embedding_type: str = "ape"):
+                 pos_embedding_type: str = "ape", dtype: torch.dtype = torch.float32):
         super().__init__()
         if pos_embedding_type not in POS_EMBEDDINGS:
             raise ValueError(f"pos_embedding_type {pos_embedding_type!r}; one of {POS_EMBEDDINGS}")
         self.num_heads = num_heads
+        self.dtype = dtype
         self.pos_embedding_type = pos_embedding_type
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(dim, dim, bias=False)
@@ -99,38 +107,42 @@ class TemporalAttention(nn.Module):
         and k rotated)."""
         if train or self.pos_embedding_type == "rope":
             return x + self._unfused(x, norm)
-        t = x.shape[1]
-        jax_layout = lambda lin: lin.weight.t()  # noqa: E731  [C_in, C_out], a view
+        t, dt = x.shape[1], self.dtype
+        # [C_in, C_out]: a view of the parameter at f32, of its cast at bf16
+        jax_layout = lambda lin: lin.weight.to(dt).t()  # noqa: E731
         out = self.to_out[0]
         return fused_temporal_block(
             x.contiguous(), norm.weight.float().contiguous(), norm.bias.float().contiguous(),
             self.pe[:t].contiguous(), jax_layout(self.to_q), jax_layout(self.to_k),
-            jax_layout(self.to_v), jax_layout(out), out.bias.contiguous(), self.num_heads)
+            jax_layout(self.to_v), jax_layout(out), out.bias.to(dt).contiguous(),
+            self.num_heads)
 
     def _unfused(self, x, norm):
         """to_out(attn(LN_1e-6(x) + pe)), or with RoPE to_out(attn) of the
         rotated q, k of LN_1e-6(x): JAX's unfused sub-block."""
         bstar, t, c = x.shape
-        y = F.layer_norm(x, (c,), norm.weight, norm.bias, TRAIN_LN_EPS)
+        dt = self.dtype
+        y = layer_norm(norm, x, dt, TRAIN_LN_EPS)
         if self.pos_embedding_type == "ape":
-            y = y + self.pe[:t].to(x.dtype)
-        q, k, v = (lin(y) for lin in (self.to_q, self.to_k, self.to_v))
+            y = y + self.pe[:t].to(y.dtype)
+        q, k, v = (dense(lin, y, dt) for lin in (self.to_q, self.to_k, self.to_v))
         if self.pos_embedding_type == "rope":
-            cos, sin = self.rope_cos[:t].to(x.dtype), self.rope_sin[:t].to(x.dtype)
+            cos, sin = self.rope_cos[:t].to(y.dtype), self.rope_sin[:t].to(y.dtype)
             q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
         heads = self.num_heads
         q, k, v = (a.reshape(bstar, t, heads, c // heads) for a in (q, k, v))
         out = temporal_attention(q, k, v, (c // heads) ** -0.5).reshape(bstar, t, c)
-        return self.to_out[0](out)
+        return dense(self.to_out[0], out, dt)
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, inner: int):
+    def __init__(self, dim: int, inner: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.proj = nn.Linear(dim, 2 * inner)
 
     def forward(self, x):
-        value, gate = self.proj(x).chunk(2, dim=-1)
+        value, gate = dense(self.proj, x, self.dtype).chunk(2, dim=-1)
         return value * F.gelu(gate)
 
 
@@ -138,11 +150,13 @@ class GEGLUFeedForward(nn.Module):
     """GEGLU MLP; the out projection optionally carries a LoRA adapter."""
 
     def __init__(self, dim: int, mult: int = 4, lora_variant: str = "none",
-                 lora_rank: int = 4, lora_alpha: float | None = None):
+                 lora_rank: int = 4, lora_alpha: float | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = dim * mult
-        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
-                                  LoRADense(inner, dim, lora_rank, lora_alpha, lora_variant)])
+        self.net = nn.ModuleList([GEGLU(dim, inner, dtype), nn.Identity(),
+                                  LoRADense(inner, dim, lora_rank, lora_alpha, lora_variant,
+                                            dtype)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
@@ -152,36 +166,38 @@ class TemporalTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8, num_attention_blocks: int = 2,
                  temporal_max_len: int = 32, lora_variant: str = "none",
                  lora_rank: int = 4, lora_alpha: float | None = None,
-                 pos_embedding_type: str = "ape"):
+                 pos_embedding_type: str = "ape", dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.attention_blocks = nn.ModuleList(
-            TemporalAttention(dim, num_heads, temporal_max_len, pos_embedding_type)
+            TemporalAttention(dim, num_heads, temporal_max_len, pos_embedding_type, dtype)
             for _ in range(num_attention_blocks))
         # eps 1e-5 is the fused kernel's (APE serving); the unfused route
         # uses TRAIN_LN_EPS
         self.norms = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5)
                                    for _ in range(num_attention_blocks))
         self.ff = GEGLUFeedForward(dim, lora_variant=lora_variant, lora_rank=lora_rank,
-                                   lora_alpha=lora_alpha)
+                                   lora_alpha=lora_alpha, dtype=dtype)
         self.ff_norm = nn.LayerNorm(dim, eps=1e-6)
 
     def forward(self, x, train: bool = False):  # [B*, T, C]
         for attn, norm in zip(self.attention_blocks, self.norms):
             x = attn(x, norm, train)
-        return x + self.ff(self.ff_norm(x))
+        return x + self.ff(layer_norm(self.ff_norm, x, self.dtype))
 
 
 class TemporalTransformer(nn.Module):
     def __init__(self, c: int, num_heads: int, num_transformer_block: int,
                  num_attention_blocks: int, norm_num_groups: int, temporal_max_len: int,
                  lora_variant: str, lora_rank: int, lora_alpha: float | None,
-                 pos_embedding_type: str = "ape"):
+                 pos_embedding_type: str = "ape", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = nn.GroupNorm(norm_num_groups, c, eps=1e-6)
         self.proj_in = nn.Linear(c, c)
         self.transformer_blocks = nn.ModuleList(
             TemporalTransformerBlock(c, num_heads, num_attention_blocks, temporal_max_len,
-                                     lora_variant, lora_rank, lora_alpha, pos_embedding_type)
+                                     lora_variant, lora_rank, lora_alpha, pos_embedding_type,
+                                     dtype)
             for _ in range(num_transformer_block))
         self.proj_out = nn.Linear(c, c)
 
@@ -195,22 +211,24 @@ class TemporalModule(nn.Module):
                  num_transformer_block: int = 1, num_attention_blocks: int = 2,
                  norm_num_groups: int = 32, temporal_max_len: int = 32,
                  lora_variant: str = "none", lora_rank: int = 4,
-                 lora_alpha: float | None = None, pos_embedding_type: str = "ape"):
+                 lora_alpha: float | None = None, pos_embedding_type: str = "ape",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.temporal_transformer = TemporalTransformer(
             in_channels, num_attention_heads, num_transformer_block, num_attention_blocks,
             norm_num_groups, temporal_max_len, lora_variant, lora_rank, lora_alpha,
-            pos_embedding_type)
+            pos_embedding_type, dtype)
 
     def forward(self, x: torch.Tensor, frames: int, train: bool = False) -> torch.Tensor:
         tt = self.temporal_transformer
         bt, h, w, c = x.shape
-        b = bt // frames
-        y = tt.norm(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        y = tt.proj_in(y.reshape(bt, h * w, c))
+        b, dt = bt // frames, self.dtype
+        y = group_norm(tt.norm, x, dt)
+        y = dense(tt.proj_in, y.reshape(bt, h * w, c), dt)
         # [(B*T), HW, C] -> [(B*HW), T, C]: time becomes the sequence axis
         y = y.reshape(b, frames, h * w, c).transpose(1, 2).reshape(b * h * w, frames, c)
         for blk in tt.transformer_blocks:
             y = blk(y, train)
         y = y.reshape(b, h * w, frames, c).transpose(1, 2).reshape(bt, h * w, c)
-        return tt.proj_out(y).reshape(bt, h, w, c) + x
+        return dense(tt.proj_out, y, dt).reshape(bt, h, w, c) + x

@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from endodav_tpu_torch.models.vit import conv_nhwc
+from endodav_tpu_torch.models.cast import conv_nhwc
 
 __all__ = ["BatchNorm", "ResNetEncoder", "resnet_num_ch_enc", "commit_batch_stats"]
 

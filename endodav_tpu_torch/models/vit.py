@@ -13,6 +13,13 @@ Serving routes, as `models/vit.py:85-116,175-197` of the JAX package:
 fused qkv projection, the attention out-projection and the merged MLP's
 fc1/fc2 through `int8_dense`; ``ENDODAV_FUSED_MLP`` (default off) sends
 the MLP of the merged graph without int8 through the fused-MLP kernel.
+
+``dtype`` is the compute dtype of JAX's ``DinoViT.dtype`` (f32 by
+default; the TPU benchmark serves bf16): parameters stay f32 and every
+module casts where flax does (`models/cast.py`).  The cls and position
+tokens take the patch tokens' dtype (JAX :401-402); LayerScale and the
+ResBottleneck's channel LayerNorm compute in their input's dtype, as JAX's
+(:187, :214-215).
 """
 
 from __future__ import annotations
@@ -24,13 +31,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from endodav_tpu_torch.kernels.fused_mlp import fused_mlp
+from endodav_tpu_torch.models.cast import conv_nhwc, dense, layer_norm
 from endodav_tpu_torch.models.lora import LoRADense
 from endodav_tpu_torch.ops.attention import fused_qkv_attention
 from endodav_tpu_torch.ops.quant import int8_dense, resolve_int8
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.utils.envflags import env_on
 
-__all__ = ["DinoViT", "VIT_CONFIGS", "conv_nhwc"]
+__all__ = ["DinoViT", "VIT_CONFIGS"]
 
 VIT_CONFIGS = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6),
@@ -38,40 +46,41 @@ VIT_CONFIGS = {
 }
 
 
-def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply an NCHW conv module to a channels-last [B, H, W, C] tensor.
-    The permuted views are channels_last memory format, so no copy is made."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-
-
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, lora_variant: str, lora_rank: int,
-                 lora_alpha: float | None):
+                 lora_alpha: float | None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = LoRADense(dim, hidden, lora_rank, lora_alpha, lora_variant)
-        self.fc2 = LoRADense(hidden, dim, lora_rank, lora_alpha, lora_variant)
+        self.dtype = dtype
+        self.fc1 = LoRADense(dim, hidden, lora_rank, lora_alpha, lora_variant, dtype)
+        self.fc2 = LoRADense(hidden, dim, lora_rank, lora_alpha, lora_variant, dtype)
 
     def forward(self, x, quant_int8: bool = False):
         if env_on("ENDODAV_FUSED_MLP") and self.fc1.variant == "none" and not quant_int8:
-            w1, w2 = (lin.weight.t() for lin in (self.fc1, self.fc2))  # JAX layout, views
-            return fused_mlp(x.contiguous(), w1, self.fc1.bias.float(), w2,
+            dt = self.dtype
+            # the JAX layout: views of the parameters at f32, of their casts at bf16
+            w1, w2 = (lin.weight.to(dt).t() for lin in (self.fc1, self.fc2))
+            return fused_mlp(x.to(dt).contiguous(), w1, self.fc1.bias.float(), w2,
                              self.fc2.bias.float())
         return self.fc2(F.gelu(self.fc1(x, quant_int8)), quant_int8)
 
 
 class SpatialAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, quant_int8: bool = False):
-        out = fused_qkv_attention(x, self.qkv.weight, self.qkv.bias, self.num_heads,
-                                  quant_int8=quant_int8)
-        if quant_int8:
-            return int8_dense(out, self.proj.weight, self.proj.bias)
-        return self.proj(out)
+        dt = self.dtype
+        if quant_int8:  # the f32 weights, quantized inside (JAX :153-158)
+            out = fused_qkv_attention(x, self.qkv.weight, self.qkv.bias, self.num_heads,
+                                      quant_int8=True)
+            return int8_dense(out, self.proj.weight, self.proj.bias, out_dtype=dt)
+        out = fused_qkv_attention(x, self.qkv.weight.to(dt), self.qkv.bias.to(dt),
+                                  self.num_heads)
+        return dense(self.proj, out, dt)
 
 
 class LayerScale(nn.Module):
@@ -80,11 +89,12 @@ class LayerScale(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), init_value))
 
     def forward(self, x):
-        return x * self.gamma
+        return x * self.gamma.to(x.dtype)
 
 
 class ChannelLayerNorm(nn.Module):
-    """LayerNorm over the channel axis of [B, H, W, C] maps, eps 1e-6."""
+    """LayerNorm over the channel axis of [B, H, W, C] maps, eps 1e-6, in
+    x's dtype."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -94,14 +104,16 @@ class ChannelLayerNorm(nn.Module):
     def forward(self, x):
         mu = x.mean(-1, keepdim=True)
         var = ((x - mu) ** 2).mean(-1, keepdim=True)
-        return (x - mu) * torch.rsqrt(var + 1e-6) * self.weight + self.bias
+        y = (x - mu) * torch.rsqrt(var + 1e-6)
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
 
 
 class ResBottleneckBlock(nn.Module):
     """1x1 -> 3x3 -> 1x1 bottleneck over patch-token maps [B, ph, pw, C]."""
 
-    def __init__(self, channels: int, bottleneck: int):
+    def __init__(self, channels: int, bottleneck: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(channels, bottleneck, 1, bias=False)
         self.norm1 = ChannelLayerNorm(bottleneck)
         self.conv2 = nn.Conv2d(bottleneck, bottleneck, 3, padding=1, bias=False)
@@ -110,9 +122,10 @@ class ResBottleneckBlock(nn.Module):
         self.norm3 = ChannelLayerNorm(channels)
 
     def forward(self, x):
-        y = F.gelu(self.norm1(conv_nhwc(self.conv1, x)))
-        y = F.gelu(self.norm2(conv_nhwc(self.conv2, y)))
-        return self.norm3(conv_nhwc(self.conv3, y))
+        dt = self.dtype
+        y = F.gelu(self.norm1(conv_nhwc(self.conv1, x, dt)))
+        y = F.gelu(self.norm2(conv_nhwc(self.conv2, y, dt)))
+        return self.norm3(conv_nhwc(self.conv3, y, dt))
 
 
 class ViTBlock(nn.Module):
@@ -120,21 +133,23 @@ class ViTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, use_residual_block: bool,
                  include_cls_token: bool, lora_variant: str, lora_rank: int,
-                 lora_alpha: float | None):
+                 lora_alpha: float | None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ofs = 1 if include_cls_token else 0
+        self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = SpatialAttention(dim, num_heads)
+        self.attn = SpatialAttention(dim, num_heads, dtype)
         self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, 4 * dim, lora_variant, lora_rank, lora_alpha)
+        self.mlp = Mlp(dim, 4 * dim, lora_variant, lora_rank, lora_alpha, dtype)
         self.ls2 = LayerScale(dim)
         if use_residual_block:
-            self.residual_ = ResBottleneckBlock(dim, dim // 8)
+            self.residual_ = ResBottleneckBlock(dim, dim // 8, dtype)
 
     def forward(self, x, patch_hw: tuple[int, int], quant_int8: bool = False):
-        x = x + self.ls1(self.attn(self.norm1(x), quant_int8))
-        x = x + self.ls2(self.mlp(self.norm2(x), quant_int8))
+        dt = self.dtype
+        x = x + self.ls1(self.attn(layer_norm(self.norm1, x, dt), quant_int8))
+        x = x + self.ls2(self.mlp(layer_norm(self.norm2, x, dt), quant_int8))
         if hasattr(self, "residual_"):
             b, n, c = x.shape
             patches = x[:, self.ofs:].reshape(b, *patch_hw, c)
@@ -144,12 +159,13 @@ class ViTBlock(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    def __init__(self, patch_size: int, embed_dim: int):
+    def __init__(self, patch_size: int, embed_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, images):  # [B, H, W, 3] -> [B, ph*pw, C]
-        x = conv_nhwc(self.proj, images)
+        x = conv_nhwc(self.proj, images, self.dtype)
         return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
@@ -163,13 +179,14 @@ class DinoViT(nn.Module):
                  patch_size: int = 14, pos_grid: int = 37,
                  residual_block_indexes: Sequence[int] = (), include_cls_token: bool = True,
                  lora_variant: str = "none", lora_rank: int = 4,
-                 lora_alpha: float | None = None):
+                 lora_alpha: float | None = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
         self.patch_size = patch_size
         self.pos_grid = pos_grid
         self.include_cls_token = include_cls_token
-        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        self.dtype = dtype
+        self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, pos_grid * pos_grid + 1, embed_dim))
         # kept for checkpoint-shape parity with DINOv2 weights (unused)
@@ -177,7 +194,7 @@ class DinoViT(nn.Module):
         residual = set(int(i) for i in residual_block_indexes)
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, num_heads, i in residual, include_cls_token,
-                     lora_variant, lora_rank, lora_alpha)
+                     lora_variant, lora_rank, lora_alpha, dtype)
             for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
@@ -210,7 +227,7 @@ class DinoViT(nn.Module):
         for i, blk in enumerate(self.blocks):
             x = blk(x, (ph, pw), quant_int8)
             if i in take:
-                out = self.norm(x)
+                out = layer_norm(self.norm, x, self.dtype)
                 # without a cls token the first patch stands in for it
                 results.append((out[:, 1:] if self.include_cls_token else out, out[:, 0]))
         return results

@@ -73,10 +73,11 @@ def int_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a8.contiguous(), w8.t())
 
 
-def int8_dense(x: torch.Tensor, w: torch.Tensor,
-               bias: torch.Tensor | None = None) -> torch.Tensor:
-    """y = x @ w^T (+ bias) in x's dtype with the contraction in int8; x
-    [..., in], w [out, in]."""
+def int8_dense(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """y = x @ w^T (+ bias) with the contraction in int8; x [..., in], w
+    [out, in].  The epilogue runs in f32 and the result is cast to
+    ``out_dtype`` (default x's dtype), as JAX's `int8_dense` (:102-127)."""
     w8, w_scale = quantize_weight(w)
     x8, x_scale = quantize_rows(x)
     lead = x8.shape[:-1]
@@ -84,4 +85,4 @@ def int8_dense(x: torch.Tensor, w: torch.Tensor,
     y = acc.float().reshape(*lead, -1) * x_scale * w_scale
     if bias is not None:
         y = y + bias.float()
-    return y.to(x.dtype)
+    return y.to(x.dtype if out_dtype is None else out_dtype)

@@ -835,3 +835,106 @@ def test_fused_rcu_tensor_cores_at_head_shapes(dtype, h, w, c):
     assert fused_rcu.launches == before + 2 and got.dtype == dtype
     assert fused_rcu.planes.hits == hits + 2 and torch.equal(got, again)
     assert (got.float() - want).abs().max().item() <= TOL[dtype] * max(1.0, want.abs().max())
+
+
+# bf16 serving, card (kernels) against the CPU (plain versions).  At the
+# engine's seed weights the disparity spans nearly [0, 1] and bf16 moves
+# pixels in the sigmoids' steep part: JAX's own bf16 error against its f32
+# there is up to 5.9e-2 max (tools/bf16_reference_error.py), above the
+# whole-model bf16 bound of tests/test_torch_bf16_serving.py (2.5e-2, set
+# at JAX's init weights).  So the card's bf16 is held, against the CPU's
+# f32, to the CPU bf16 plain version's own error on the same weights and
+# frames: the mean within 1.5x (that test's relative bound), the largest
+# within 2x (a maximum over one clip varies more); as chip_smoke.py does.
+BF16_REL_MAX, BF16_REL_MEAN = 2.0, 1.5
+
+
+def _bf16_models(dev, args=(), **changes):
+    """A seeded model through `build_depth_model` on the CPU (f32), its bf16
+    clone there and a copy of that on the card."""
+    import copy
+
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.options import EndoDAVOptions
+
+    opt = EndoDAVOptions().parse(["--no_cuda", "--depth_image_shape", "112", "140", *args])
+    f32 = engine.build_depth_model(opt, torch.device("cpu"))
+    if changes:
+        f32 = f32.clone(**changes)
+    plain = f32.clone(dtype=torch.bfloat16)
+    return f32, plain, copy.deepcopy(plain).to(dev)
+
+
+def _err(a, b):
+    d = (torch.as_tensor(a).float().cpu() - torch.as_tensor(b).float().cpu()).abs()
+    assert torch.isfinite(d).all()
+    return d.max().item(), d.mean().item()
+
+
+def _bf16_close(card, plain, f32):
+    """The card's bf16 against f32 within BF16_REL_MAX / BF16_REL_MEAN times
+    the CPU bf16 plain version's own error."""
+    got, own = _err(card, f32), _err(plain, f32)
+    assert got[0] <= BF16_REL_MAX * own[0] and got[1] <= BF16_REL_MEAN * own[1], (got, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,args,env,changes", [
+    ("flash_attention", (), {}, {}),
+    ("fused_rcu", (), {"ENDODAV_FUSED_RCU": "1"}, {}),
+    ("fused_mlp", ("--merge_lora",), {"ENDODAV_FUSED_MLP": "1"}, {}),
+    ("temporal_attention", (), {}, {"pos_embedding_type": "rope"}),
+])
+def test_bf16_model_on_the_card_matches_the_cpu(monkeypatch, route, args, env, changes):
+    """The bf16 vits model (`clone(dtype=torch.bfloat16)` of the engine's
+    seeded model) on the card against the CPU on one 4-frame clip, with
+    the route's kernel launched at bf16: every scale in bf16, within the
+    relative bound above."""
+    from endodav_tpu_torch.kernels import flash_attention, fused_mlp, fused_rcu
+    from endodav_tpu_torch.kernels import temporal_attention
+
+    counters = {"flash_attention": flash_attention.qkv_attention, "fused_rcu": fused_rcu.fused_rcu,
+                "fused_mlp": fused_mlp.fused_mlp,
+                "temporal_attention": temporal_attention.temporal_attention}
+    dev = _card()
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    f32, plain, gpu = _bf16_models(dev, args, **changes)
+    video = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 4, 128, 160, 3))
+                             .astype(np.float32))
+    with torch.inference_mode():
+        want, own = f32(video), plain(video)
+        before = counters[route].launches
+        got = gpu(video.to(dev))
+        launched = counters[route].launches - before
+    assert launched > 0
+    for s in range(4):
+        assert got[("disp", s)].dtype == torch.bfloat16
+        _bf16_close(got[("disp", s)], own[("disp", s)], want[("disp", s)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stitch,transfer,sequential", [
+    ("device", np.float16, False),   # the TPU benchmark's headline leg
+    ("host", np.float32, True),      # its baseline leg
+])
+def test_bf16_serving_options_on_the_card(stitch, transfer, sequential):
+    """`infer_video_depth` with the bf16 model over 54 frames (3 windows),
+    dedup where it serves, on the card against the CPU's bf16 and f32
+    runs, within the relative bound above."""
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.eval import video_inference as tvi
+
+    dev = _card()
+    f32, plain, gpu = _bf16_models(dev, ("--merge_lora", "--disable_residual_block"))
+    frames = np.random.default_rng(1).integers(0, 255, (54, 128, 160, 3), dtype=np.uint8)
+    kw = dict(image_shape=(112, 140), chunk_windows=2, stitch=stitch, transfer_dtype=transfer,
+              sequential=sequential)
+    out = {}
+    for name, model, device in (("f32", f32, torch.device("cpu")),
+                                ("plain", plain, torch.device("cpu")), ("card", gpu, dev)):
+        fwd = engine.depth_window_forward(model)
+        dedup = None if sequential else tvi.DedupWindowForward(model)
+        out[name] = tvi.infer_video_depth(fwd, frames, device=device, dedup=dedup, **kw)
+    assert out["card"].dtype == out["plain"].dtype and out["card"].shape == (54, 128, 160)
+    _bf16_close(out["card"], out["plain"], out["f32"])
