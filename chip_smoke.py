@@ -11,10 +11,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against a float64 product as K grows, held to half the f32 tolerance;
      each kernel against its plain PyTorch version on the card, at the
      shapes of the serving path and of the training step: flash attention
-     (f32, bf16, and its gradient; f32 also against float64), the fused
+     (f32, bf16, and its gradient; f32 also against float64; also at
+     EndoDAC's 8-frame batches, vits and vitb's 12 heads), the fused
      temporal block at every motion-module width (vits C=64, 192, 384;
      vitl C=256 and 1024) in f32 and bf16, the fused MLP at vits and vitl
-     widths, the fused RCU at the vits head's shapes (these four on the
+     widths and at EndoDAC's 8-frame batches (vits; vitb on a cluster of
+     3), the fused RCU at the vits head's shapes and EndoDAC's (C=64 and
+     128) (these four on the
      tensor cores, f32 as 3xTF32: both bounds, the rate reached, and the
      temporal block's two launches), the temporal attention at
      the training step's and a 518x644 window's shapes, vitl's head
@@ -44,14 +47,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      with ENDODAV_FUSED_RCU=1, merged with ENDODAV_FUSED_MLP=1, and with
      RoPE, each launching its kernel at bf16, held against the CPU's f32
      relative to the CPU bf16 plain version's own error (`BF16_REL_MAX`);
+     the single-frame models (EndoDAC vits and vitb with plain LoRA, vitb
+     merged with ENDODAV_FUSED_MLP=1 and ENDODAV_FUSED_RCU=1, vits with
+     BatchNorm RCUs, AF-SfM) against the CPU the same way; the JAX
+     engine's A/B switches (ENDODAV_NO_FLASH, ENDODAV_LOWRES_OUTCONV,
+     ENDODAV_NO_FUSED, ENDODAV_FUSED_TRAIN, ENDODAV_NO_WARP_MM), each with
+     its launches; `cli/test_simple`'s disparity against the CPU;
   5. the serving path as the CLI runs it (engine.build_depth_model ->
      depth_window_forward -> evaluate_video_sequences) over synthetic
      SCARED-like 64-frame sequences: vitl 518x644 merged (dedup in taps
      mode, int8 GEMMs, device stitch), the vits 518x644 headline (dedup in
      prefix mode) as built, with ENDODAV_FUSED_MLP=1 and with
-     ENDODAV_FUSED_RCU=1, and the 224x280 CLI default (window path); finite
-     metrics and the launches of every serving kernel per encode batch and
-     per window chunk checked;
+     ENDODAV_FUSED_RCU=1, and the 224x280 CLI default (window path), and
+     the single-frame branch in batches of 8 (EndoDAC vitb as built and
+     merged with both opt-in kernels, vits, AF-SfM at 256x320, each also
+     timed warm); finite metrics and the launches of every serving kernel
+     per encode batch, window chunk or frame batch checked; then
+     `cli/evaluate_depth` on a synthetic SCARED `endovis` tree;
   6. live streaming (`eval/streaming.py:DepthStreamer`) with
      ENDODAV_FUSED_RCU=1 over one 64-frame sequence pushed frame by frame:
      vits 518x644 merged on dedup (prefix mode) and the 224x280 default on
@@ -85,9 +97,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      error against the plain version) and, last, the device line.
 
 ``--profile-step TRACE_DIR`` adds a `torch.profiler` run of one more
-full-width step, ``--profile-serving TRACE_DIR`` one of vitl serving over
-a 64-frame sequence: device time by kernel name, and the Chrome trace in
-TRACE_DIR.
+full-width step, ``--profile-serving TRACE_DIR`` one each of vitl, the
+vits headline, EndoDAC vitb and vits and AF-SfM serving over a 64-frame
+sequence (`profile_serving`, also callable alone): device time by kernel
+name, the device's idle share, and the Chrome traces in TRACE_DIR.
 """
 
 from __future__ import annotations
@@ -127,18 +140,26 @@ BF16_MAX, BF16_MEAN = 2.5e-2, 4e-3
 BF16_REL_MAX, BF16_REL_MEAN = 2.0, 1.5
 # flash attention (B, N): 224x280 window chunks (2 x 32 frames); 518x644
 # window chunks and dedup encode batches of 32 frames at vits (H=6) and
-# vitl (H=16)
-FLASH_SHAPES = [(64, 321, 6), (64, 1703, 6), (32, 1703, 16)]
+# vitl (H=16); EndoDAC's single-frame batches of 8 224x280 frames at vits
+# and vitb (H=12)
+FLASH_SHAPES = [(64, 321, 6), (64, 1703, 6), (32, 1703, 16), (8, 321, 6), (8, 321, 12)]
 # temporal block (C, rows) of one 518x644 window: vits's four motion
 # modules; vitl's C=1024 ones and its C=256 ones
 TEMPORAL_SHAPES = [(192, 1702), (384, 437), (64, 6808), (1024, 1702), (1024, 437), (256, 1702),
                    (256, 6808)]
-# fused MLP (C, H, rows): a dedup encode batch of 32 518x644 frames
-MLP_SHAPES = [(384, 1536, 32 * 1703), (1024, 4096, 32 * 1703)]
-# fused RCU (B, H, W) at C=64: the vits head's RCU inputs of one 518x644
-# window (refinenet4 19x23, refinenet3 37x46, refinenet2 74x92, refinenet1
-# 148x184) and of a 224x280 window (refinenet1 64x80)
-RCU_SHAPES = [(32, 19, 23), (32, 37, 46), (32, 74, 92), (32, 148, 184), (32, 64, 80)]
+# fused MLP (C, H, rows): a dedup encode batch of 32 518x644 frames; an
+# EndoDAC batch of 8 224x280 frames at vits and at vitb (768 columns: the
+# widest tile on a cluster of 3)
+MLP_SHAPES = [(384, 1536, 32 * 1703), (1024, 4096, 32 * 1703), (384, 1536, 8 * 321),
+              (768, 3072, 8 * 321)]
+# fused RCU (B, H, W, C): the vits head's RCU inputs of one 518x644 window
+# (refinenet4 19x23, refinenet3 37x46, refinenet2 74x92, refinenet1
+# 148x184) and of a 224x280 window (refinenet1 64x80); EndoDAC's of a batch
+# of 8 224x280 frames (refinenet4 8x10 .. refinenet1 64x80) at vits (C=64)
+# and vitb (C=128)
+ENDODAC_RCU_HW = [(8, 10), (16, 20), (32, 40), (64, 80)]
+RCU_SHAPES = ([(32, 19, 23, 64), (32, 37, 46, 64), (32, 74, 92, 64), (32, 148, 184, 64),
+               (32, 64, 80, 64)] + [(8, h, w, c) for c in (64, 128) for h, w in ENDODAC_RCU_HW])
 # temporal attention (rows, T, Dh) over 8 heads: the training step's motion
 # modules (256x320 frames, ViT input 224x280, T=16: C=192, 384, 64 at
 # 16x20, 8x10 and 16x20, 32x40 pixels) and a 518x644 serving window's
@@ -155,6 +176,11 @@ TILE_ROWS, TILE_COLS = 4096, 256
 # vitl at it as the CLI serves it (dedup in taps mode, int8 by default)
 HEADLINE = ["--depth_image_shape", "518", "644", "--merge_lora", "--disable_residual_block"]
 VITL_ARGS = ["--encoder", "vitl", *HEADLINE, "--chunk_windows", "1", "--fast_stitch"]
+# the single-frame models at the CLI's 224x280: EndoDAC vits and vitb with
+# plain LoRA (the reference's EndoDAC), and AF-SfM (ResNet-18)
+ENDODAC = ["--model_type", "endodac", "--lora_type", "lora"]
+ENDODAC_VITB = [*ENDODAC, "--encoder", "vitb"]
+AFSFM = ["--model_type", "afsfm"]
 # warps: outputs and coordinate gradients to 1e-5 of max(1, their largest
 # entry) (one thread computes what the plain version computes, up to FMA
 # contraction); d_img and the splat map are summed with atomics in an order
@@ -799,19 +825,43 @@ def _splat_coords(g, n, h, w, device):
             (yy + shift[:, 1]).reshape(n, -1).contiguous())
 
 
+def splat_library_calls(x, y, h, w):
+    """The splat's library yardsticks on coordinates [B, P]: one
+    index_put_(accumulate=True) (PyTorch's sorting path) and one index_add_
+    (the atomic scatter the plain version uses) of the four corners'
+    indices and masses into a zeroed map."""
+    n = x.shape[0]
+    x1, y1 = torch.floor(x), torch.floor(y)
+    idx, vals = [], []
+    base = (torch.arange(n, device=x.device) * (h * w))[:, None]
+    for cx, cy in ((x1 + 1, y1 + 1), (x1 + 1, y1), (x1, y1 + 1), (x1, y1)):
+        ok = (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
+        val = (1 - (x - cx).abs()) * (1 - (y - cy).abs()) * ok
+        idx.append((base + (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).long()).reshape(-1))
+        vals.append(val.reshape(-1))
+    idx, vals = torch.cat(idx), torch.cat(vals)
+    acc = torch.zeros(n * h * w, device=x.device)
+    return {"index_put_": lambda: acc.index_put_((idx,), vals, accumulate=True),
+            "index_add_": lambda: acc.index_add_(0, idx, vals)}
+
+
 def splat_agreement(x, y, h, w):
     """The splat kernel's map against the plain version's on the same
     coordinates [B, P]: the relative error, the pixels whose `occ > 0.95`
     mask flips, the plain map's pixels within the kernel's largest error of
     0.95 (where the atomics' summation order alone can flip it), and the
-    kernel's ms per call on them (the map's zeroing included)."""
+    ms per call on them of the kernel (the map's zeroing included), the
+    plain version and the two library calls."""
     from endodav_tpu_torch.kernels import warp_matmul as W
 
     got, want = W.splat_cuda(x, y, h, w), W.splat_reference(x, y, h, w)
     err = (got - want).abs().max()
+    t = time_calls({"plain": lambda: W.splat_reference(x, y, h, w),
+                    "kernel": lambda: W.splat_cuda(x, y, h, w),
+                    **splat_library_calls(x, y, h, w)})
     return dict(rel_occ=_rel_err(got, want), flips=int(((got > 0.95) != (want > 0.95)).sum()),
-                near=int(((want - 0.95).abs() <= err).sum()),
-                ms=time_calls({"kernel": lambda: W.splat_cuda(x, y, h, w)})["kernel"])
+                near=int(((want - 0.95).abs() <= err).sum()), ms=t["kernel"],
+                plain_ms=t["plain"], index_put_ms=t["index_put_"], index_add_ms=t["index_add_"])
 
 
 def check_splat(device, n=128, hw=TRAIN_HW):
@@ -857,21 +907,9 @@ def check_splat(device, n=128, hw=TRAIN_HW):
     require(flow["rel_occ"] <= ATOMIC_RTOL,
             f"splat, flow-shaped coordinates: relative err {flow['rel_occ']}")
 
-    # the library call's indices and values: the plain version's four corners
-    x1, y1 = torch.floor(x), torch.floor(y)
-    idx, vals = [], []
-    base = (torch.arange(n, device=device) * (h * w))[:, None]
-    for cx, cy in ((x1 + 1, y1 + 1), (x1 + 1, y1), (x1, y1 + 1), (x1, y1)):
-        ok = (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
-        val = (1 - (x - cx).abs()) * (1 - (y - cy).abs()) * ok
-        idx.append((base + (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).long()).reshape(-1))
-        vals.append(val.reshape(-1))
-    idx, vals = torch.cat(idx), torch.cat(vals)
-    acc = torch.zeros(n * h * w, device=device)
     t = time_calls({"plain": lambda: W.splat_reference(x, y, h, w),
                     "kernel": lambda: W.splat_cuda(x, y, h, w),
-                    "index_put_": lambda: acc.index_put_((idx,), vals, accumulate=True),
-                    "index_add_": lambda: acc.index_add_(0, idx, vals)})
+                    **splat_library_calls(x, y, h, w)})
     row.update(ms=t["kernel"], plain_ms=t["plain"], index_put_ms=t["index_put_"],
                index_add_ms=t["index_add_"])
     row["library_call"] = min(("index_put_", "index_add_"), key=t.get)
@@ -882,24 +920,28 @@ def check_splat(device, n=128, hw=TRAIN_HW):
     return row
 
 
-def check_fused_rcu(device, shapes=RCU_SHAPES, c=64, timing=True):
-    """The fused RCU against its plain version at the vits head's RCU
-    shapes, f32 and bf16, to TOL of max(1, the largest entry); the library
-    yardstick is cuDNN's channels-last composition (two F.conv2d, relu,
-    add) on the same tensors."""
+def check_fused_rcu(device, shapes=RCU_SHAPES, timing=True):
+    """The fused RCU against its plain version at the vits and vitb heads'
+    RCU shapes, f32 and bf16, to TOL of max(1, the largest entry); the
+    library yardstick is cuDNN's channels-last composition (two F.conv2d,
+    relu, add) on the same tensors."""
     import torch.nn.functional as F
 
     from endodav_tpu_torch.kernels.fused_rcu import fused_rcu, rcu_reference
 
     rows = []
     g = torch.Generator(device=device).manual_seed(SEED + 7)
-    convs = [torch.nn.Conv2d(c, c, 3, padding=1).to(device) for _ in range(2)]
-    with torch.no_grad():
-        for conv in convs:
-            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g, device=device)
-                              * (9 * c) ** -0.5)
-            conv.bias.copy_(torch.randn(c, generator=g, device=device) * 0.1)
-    for b, h, w in shapes:
+    conv_sets = {}
+    for c in sorted({shape[-1] for shape in shapes}):
+        convs = conv_sets[c] = [torch.nn.Conv2d(c, c, 3, padding=1).to(device)
+                                for _ in range(2)]
+        with torch.no_grad():
+            for conv in convs:
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=g, device=device)
+                                  * (9 * c) ** -0.5)
+                conv.bias.copy_(torch.randn(c, generator=g, device=device) * 0.1)
+    for b, h, w, c in shapes:
+        convs = conv_sets[c]
         x = torch.randn((b, h, w, c), generator=g, device=device)
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
@@ -1111,13 +1153,17 @@ def _disp_err(a, b) -> tuple[float, float]:
 
 
 def check_whole_model(device, args=(), image_shape=(224, 280), frames=8, env=None,
-                      pos_embedding_type="ape", expect=None, dtype=torch.float32):
+                      pos_embedding_type="ape", expect=None, dtype=torch.float32,
+                      rebuild=None):
     """A full-width EndoDAV on the card (kernels; int8 off, as
     build_depth_model leaves it) vs the CPU (plain versions), with ``env``
     set for both forwards, under the f32 policy that build_depth_model
     sets; ``pos_embedding_type="rope"`` clones the engine's model with RoPE
-    motion modules.  ``expect`` maps kernel wrappers to the launches each
-    must make in the card's forward.
+    motion modules; ``rebuild`` (model -> model) replaces the engine's
+    model before both forwards.  ``args`` may pick EndoDAC or AF-SfM
+    (``--model_type``), which take the clip's frames as one batch.
+    ``expect`` maps kernel wrappers to the launches each must make in the
+    card's forward.
 
     f32: disparity within MODEL_TOL of the CPU's.  bf16 (the engine's model
     cloned with ``dtype=torch.bfloat16``): against the CPU's f32 forward,
@@ -1135,6 +1181,8 @@ def check_whole_model(device, args=(), image_shape=(224, 280), frames=8, env=Non
                                engine.build_depth_model, opt, torch.device("cpu"))
         if pos_embedding_type != "ape":
             cpu_model = cpu_model.clone(pos_embedding_type=pos_embedding_type)
+        if rebuild is not None:
+            cpu_model = rebuild(cpu_model)
         plain_model = cpu_model.clone(dtype=dtype) if bf16 else cpu_model
         gpu_model = copy.deepcopy(plain_model).to(device)
         rng = np.random.default_rng(SEED)
@@ -1148,8 +1196,9 @@ def check_whole_model(device, args=(), image_shape=(224, 280), frames=8, env=Non
             got = gpu_model(video.to(device))
             names = {fn: name for name, fn in _serving_counters().items()}
             launches = {names[fn]: fn.launches for fn in expect}
-    label = " ".join([*(f"{k}={v}" for k, v in (env or {}).items()), opt.encoder, *args,
-                      pos_embedding_type, str(dtype)[6:]])
+    label = " ".join([*(f"{k}={v}" for k, v in (env or {}).items()), opt.model_type,
+                      opt.encoder, *args, pos_embedding_type, str(dtype)[6:]]
+                     + (["rebuilt"] if rebuild is not None else []))
     row = {"label": label, "launches": launches}
     for s in range(4):
         card = _disp_err(got[("disp", s)], want[("disp", s)])
@@ -1181,6 +1230,21 @@ def check_whole_model(device, args=(), image_shape=(224, 280), frames=8, env=Non
     del cpu_model, plain_model, gpu_model
     row["max"] = max(row[s]["card"][0] for s in range(4))
     return row
+
+
+def half_size(sequences):
+    """The sequences subsampled 2x in each direction (AF-SfM takes frames
+    at its training size, 256x320 for 512x640 sources)."""
+    from endodav_tpu_torch.data.pipeline import pixel_intrinsics
+
+    out = []
+    for seq in sequences:
+        colors = np.ascontiguousarray(seq["colors"][:, ::2, ::2])
+        n, h, w, _ = colors.shape
+        out.append({**seq, "colors": colors,
+                    "depths": np.ascontiguousarray(seq["depths"][:, ::2, ::2]),
+                    "Ks": pixel_intrinsics(n, h, w)})
+    return out
 
 
 def synthetic_sequences(n_seq=2, n_frames=64, h=512, w=640):
@@ -1218,17 +1282,29 @@ def _serving_counters():
 
 def rcu_routed(model) -> bool:
     """The RCUs of ``model``'s head take the fused kernel at serving
-    (models/dpt.py): ENDODAV_FUSED_RCU and features <= 128."""
+    (models/dpt.py): ENDODAV_FUSED_RCU, features <= 128 and no BatchNorm;
+    AF-SfM has no DPT head."""
     from endodav_tpu_torch.kernels.fused_rcu import MAX_CHANNELS
+    from endodav_tpu_torch.models.endodac import ENDODAC_CONFIGS
     from endodav_tpu_torch.models.endodav import ENDODAV_CONFIGS
     from endodav_tpu_torch.utils.envflags import env_on
 
-    features = ENDODAV_CONFIGS[model.encoder]["features"]
+    if model.model_type == "afsfm":
+        return False
+    if model.model_type == "endodac":
+        features = ENDODAC_CONFIGS[model.backbone_size]["features"]
+        if model.config["use_bn"]:
+            return False
+    else:
+        features = ENDODAV_CONFIGS[model.encoder]["features"]
     return env_on("ENDODAV_FUSED_RCU") and features <= MAX_CHANNELS
 
 
 # the RCUs of one head suffix: refinenet1-3 two each, refinenet4 one
 RCU_PER_SUFFIX = 7
+# frames a forward of the single-frame paths (infer_video_depth_single_frame,
+# cli/evaluate_depth)
+SINGLE_FRAME_BATCH = 8
 
 
 def wide_temporal_blocks(model) -> int:
@@ -1240,8 +1316,9 @@ def wide_temporal_blocks(model) -> int:
 
 
 def expected_serving_launches(opt, forward, sequences):
-    """Launches of each serving kernel in one run, from the configuration:
-    per encode batch (dedup) or per window chunk (window path) one flash
+    """Launches of each serving kernel in one run, from the configuration
+    (a single-frame model: per batch of frames, see below): per encode
+    batch (dedup) or per window chunk (window path) one flash
     attention a ViT block, and one fused MLP a block where it routes; per
     window chunk two temporal blocks a motion module (four modules, at
     every width on the one tensor-core route), and one head suffix
@@ -1252,6 +1329,20 @@ def expected_serving_launches(opt, forward, sequences):
     from endodav_tpu_torch.ops.quant import resolve_int8
     from endodav_tpu_torch.utils.envflags import env_on
 
+    model = forward.model
+    if model.model_type != "endodav":
+        # single-frame batches of SINGLE_FRAME_BATCH: a flash attention a ViT
+        # block (EndoDAC), one head (seven RCUs where they route) a batch
+        batches = sum(-(-len(s["colors"]) // SINGLE_FRAME_BATCH) for s in sequences)
+        depth = (VIT_CONFIGS[model.backbone_size]["depth"] if model.model_type == "endodac"
+                 else 0)
+        mlp = (depth and env_on("ENDODAV_FUSED_MLP") and model.lora_type == "none"
+               and not resolve_int8(False))
+        return ({"flash_attention": depth * batches, "fused_temporal_block": 0,
+                 "fused_mlp": depth * batches if mlp else 0,
+                 "fused_rcu": RCU_PER_SUFFIX * batches if rcu_routed(model) else 0,
+                 "temporal_attention": 0},
+                dict(chunks=0, encode_batches=batches, wide_temporal=0))
     depth = VIT_CONFIGS[opt.encoder]["depth"]
     chunks = sum(-(-len(window_indices(len(s["colors"]))) // opt.chunk_windows) for s in sequences)
     dedup = forward.dedup
@@ -1273,6 +1364,7 @@ def run_main_path(args, sequences, device, env=None):
     to 0 just before and read just after, and checked."""
     from endodav_tpu_torch.cli.evaluate_depth_video import report
     from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.eval.video_inference import infer_video_depth_single_frame
 
     env = env or {}
     with _env(env):
@@ -1288,18 +1380,185 @@ def run_main_path(args, sequences, device, env=None):
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
         expect, passes = expected_serving_launches(opt, forward, sequences)
+        if opt.model_type != "endodav":
+            # the run above is the CLI's cold one (cuDNN meets each
+            # convolution shape there first); the same frames again, warm
+            frames = sequences[0]["colors"]
+            t0 = time.perf_counter()
+            infer_video_depth_single_frame(forward, frames, device=device)
+            passes["warm_ms_per_frame"] = (time.perf_counter() - t0) / len(frames) * 1e3
     name = " ".join(f"{k}={v}" for k, v in env.items()) + " " + (" ".join(args) or "CLI default")
     for line in report(result):
         print(f"[main path {name.strip()}] {line}")
     print(f"[main path] {passes} dedup={forward.dedup is not None} "
           f"prefix_mode={getattr(forward.dedup, 'prefix_mode', None)} "
-          f"int8={forward.model.int8_serving} launches={launches} wall={wall:.3f} s "
+          f"int8={getattr(forward.model, 'int8_serving', False)} launches={launches} "
+          f"wall={wall:.3f} s "
           f"peak {torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB")
     vals = np.concatenate([result["mean_errors"], result["mean_temporal"]])
     require(bool(np.all(np.isfinite(vals))), f"main path metrics not finite: {vals}")
     require(launches == expect, f"main path {name}: launches {launches}, expected {expect}")
     return {"args": args, "name": name.strip(), "ms_per_frame": result["mean_infer_ms"],
             "launches": launches, **passes, "metrics": [float(v) for v in vals]}
+
+
+def run_evaluate_depth(device, args=ENDODAC_VITB, n_frames=16, h=512, w=640):
+    """`cli/evaluate_depth.evaluate` on a synthetic SCARED ``endovis`` tree
+    written from the seed to a temporary directory: PNG frames through PIL,
+    and ``endovis/test_files.txt`` with ``gt_depths.npz`` in a temporary
+    split directory named by ENDODAV_TPU_SPLITS_DIR (no depth TIFF is read,
+    so no cv2).  The serving kernels' launches are set to 0 just before and
+    read just after; finite metrics required."""
+    from PIL import Image
+
+    from endodav_tpu_torch.cli import evaluate_depth
+    from endodav_tpu_torch.models.vit import VIT_CONFIGS
+
+    seq = synthetic_sequences(n_seq=1, n_frames=n_frames, h=h, w=w)[0]
+    folder = "dataset3/keyframe1"
+    with tempfile.TemporaryDirectory(prefix="endovis_") as root:
+        left = os.path.join(root, "data", "train", folder, "data", "left")
+        os.makedirs(left)
+        for i, frame in enumerate(seq["colors"]):
+            Image.fromarray(frame).save(os.path.join(left, f"{i:010d}.png"))
+        split = os.path.join(root, "splits", "endovis")
+        os.makedirs(split)
+        with open(os.path.join(split, "test_files.txt"), "w") as f:
+            f.write("".join(f"{folder} {i} l\n" for i in range(n_frames)))
+        np.savez(os.path.join(split, "gt_depths.npz"), data=seq["depths"])
+        with _env({"ENDODAV_TPU_SPLITS_DIR": os.path.join(root, "splits")}):
+            opt = eval_options([*args, "--eval_split", "endovis", "--data_path",
+                                os.path.join(root, "data")])
+            counters = _serving_counters()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            errors = own_policy("evaluate_depth", evaluate_depth.evaluate, opt)
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+    batches = -(-n_frames // SINGLE_FRAME_BATCH)
+    flash = VIT_CONFIGS[opt.encoder]["depth"] * batches
+    print(f"[evaluate_depth] {' '.join(args)}: {n_frames} frames {h}x{w}, errors "
+          f"{errors.tolist() if errors is not None else None}, launches {launches}, "
+          f"wall {wall:.3f} s")
+    require(errors is not None and bool(np.all(np.isfinite(errors))),
+            f"evaluate_depth: metrics not finite: {errors}")
+    require(launches["flash_attention"] == flash,
+            f"evaluate_depth: {launches['flash_attention']} flash launches, expected {flash}")
+    return {"name": "evaluate_depth " + " ".join(args), "launches": launches, "wall_s": wall,
+            "errors": errors.tolist()}
+
+
+def check_test_simple(device, args=ENDODAC_VITB, h=512, w=640):
+    """`cli/test_simple.predict_disparity` (one frame of the synthetic
+    sequence, at its own size) on the card against the CPU, to MODEL_TOL,
+    with a flash attention a ViT block launched."""
+    from endodav_tpu_torch.cli import test_simple
+    from endodav_tpu_torch.eval import engine
+
+    opt = test_simple.parse_args(["--image_path", "-", "--no_cuda", "--seed", str(SEED), *args])
+    cpu_model = own_policy("test_simple", engine.build_depth_model, opt)
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    image = synthetic_sequences(n_seq=1, n_frames=1, h=h, w=w)[0]["colors"][0]
+    flash = _serving_counters()["flash_attention"]
+    flash.launches = 0
+    got = test_simple.predict_disparity(gpu_model, image)
+    launches = flash.launches
+    want = test_simple.predict_disparity(cpu_model, image)
+    err = _disp_err(got, want)
+    print(f"[test_simple] {' '.join(args)}: disparity {tuple(got.shape)} card vs CPU (max, mean) "
+          f"{err}, flash launches {launches}")
+    require(tuple(got.shape) == (h, w) and err[0] <= MODEL_TOL,
+            f"test_simple: disparity {tuple(got.shape)}, max |Δdisp| {err[0]} above {MODEL_TOL}")
+    require(launches == 12, f"test_simple: {launches} flash launches, expected 12")
+    return err[0]
+
+
+def check_switches(device):
+    """The JAX engine's A/B switches on the card, each an explicit leg:
+    ENDODAV_NO_FLASH (EndoDAC: no flash launch) and ENDODAV_LOWRES_OUTCONV
+    (EndoDAC: unchanged within MODEL_TOL of the card's reference order);
+    ENDODAV_NO_FUSED (EndoDAV: no temporal block, the unfused route's
+    temporal attention) through `check_whole_model`; ENDODAV_FUSED_TRAIN (a
+    training-route motion module takes the fused block, forward and
+    gradient against the CPU) and ENDODAV_NO_WARP_MM (the warp and the
+    splat take their plain versions: no warp launch, the same values)."""
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.kernels import warp_matmul as W
+    from endodav_tpu_torch.models.motion import TemporalModule
+    from endodav_tpu_torch.ops import sampling
+
+    counters = _serving_counters()
+    flash, block = counters["flash_attention"], counters["fused_temporal_block"]
+    tattn = counters["temporal_attention"]
+    rows = {}
+    opt = eval_options([*ENDODAC, "--no_cuda"])
+    model = copy.deepcopy(own_policy("build_depth_model, switches", engine.build_depth_model,
+                                     opt, torch.device("cpu"))).to(device)
+    video = torch.from_numpy(np.random.default_rng(SEED).uniform(0.0, 1.0, (8, 256, 320, 3))
+                             .astype(np.float32)).to(device)
+    outs = {}
+    for name, env in (("reference", {}), ("ENDODAV_NO_FLASH", {"ENDODAV_NO_FLASH": "1"}),
+                      ("ENDODAV_LOWRES_OUTCONV", {"ENDODAV_LOWRES_OUTCONV": "1"})):
+        with _env(env), torch.inference_mode():
+            flash.launches = 0
+            outs[name] = model(video)
+            rows[name] = {"flash_attention": flash.launches}
+    for name in ("ENDODAV_NO_FLASH", "ENDODAV_LOWRES_OUTCONV"):
+        err = max(_disp_err(outs[name][("disp", s)], outs["reference"][("disp", s)])[0]
+                  for s in range(4))
+        rows[name]["vs_reference"] = err
+        require(err <= MODEL_TOL, f"{name}: EndoDAC moved {err} from the reference order")
+    require(rows["reference"]["flash_attention"] == 12 and
+            rows["ENDODAV_NO_FLASH"]["flash_attention"] == 0,
+            f"switches: flash launches {rows}")
+    rows["ENDODAV_NO_FUSED"] = check_whole_model(
+        device, env={"ENDODAV_NO_FUSED": "1"}, frames=4, expect={block: 0, tattn: 8})["max"]
+
+    # a vits motion module at a training window's 16x20 map, T=16
+    g = torch.Generator().manual_seed(SEED + 11)
+    module = TemporalModule(192)
+    with torch.no_grad():
+        for prm in module.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=g) * prm[0].numel() ** -0.5)
+    x = torch.randn((16, 16, 20, 192), generator=g)
+    cot = torch.randn(x.shape, generator=g)
+    grads = []
+    with _env({"ENDODAV_FUSED_TRAIN": "1"}):
+        for dev, mod in ((torch.device("cpu"), module),
+                         (device, copy.deepcopy(module).to(device))):
+            block.launches = tattn.launches = 0
+            xd = x.to(dev).requires_grad_()
+            out = mod(xd, 16, train=True)
+            (dx,) = torch.autograd.grad(out, xd, cot.to(dev))
+            grads.append((out.detach().cpu(), dx.cpu(), block.launches, tattn.launches))
+    (out_c, dx_c, _, _), (out_g, dx_g, n_block, n_tattn) = grads
+    err = max((out_g - out_c).abs().max().item(), (dx_g - dx_c).abs().max().item()
+              / max(1.0, dx_c.abs().max().item()))
+    rows["ENDODAV_FUSED_TRAIN"] = {"fused_temporal_block": n_block, "temporal_attention": n_tattn,
+                                   "err": err}
+    require(n_block == 2 and n_tattn == 0 and err <= TOL[torch.float32],
+            f"ENDODAV_FUSED_TRAIN: {rows['ENDODAV_FUSED_TRAIN']}")
+
+    # the training step's colour synthesis warp and occlusion splat
+    gw = torch.Generator(device=device).manual_seed(SEED + 12)
+    img = torch.rand((4, 256, 320, 3), generator=gw, device=device)
+    flow = torch.randn((4, 256, 320, 2), generator=gw, device=device) * 3
+    warps = {}
+    for name, env in (("kernels", {}), ("ENDODAV_NO_WARP_MM", {"ENDODAV_NO_WARP_MM": "1"})):
+        with _env(env):
+            W.grid_sample_fwd_cuda.launches = W.splat_cuda.launches = 0
+            warped = sampling.flow_warp(img, flow)
+            occ = sampling.occlusion_mask_backward(flow)[1]
+            warps[name] = (warped, occ, W.grid_sample_fwd_cuda.launches + W.splat_cuda.launches)
+    err = max((warps["kernels"][0] - warps["ENDODAV_NO_WARP_MM"][0]).abs().max().item(),
+              (warps["kernels"][1] - warps["ENDODAV_NO_WARP_MM"][1]).abs().max().item())
+    rows["ENDODAV_NO_WARP_MM"] = {"warp_launches": warps["ENDODAV_NO_WARP_MM"][2],
+                                  "kernel_launches": warps["kernels"][2], "err": err}
+    require(warps["ENDODAV_NO_WARP_MM"][2] == 0 and warps["kernels"][2] == 2
+            and err <= WARP_TOL * 10, f"ENDODAV_NO_WARP_MM: {rows['ENDODAV_NO_WARP_MM']}")
+    print(f"[switches] {rows}")
+    return rows
 
 
 def run_streaming(args, sequence, device, env=None):
@@ -1758,20 +2017,34 @@ def profile_step(trainer, batch, trace_dir):
                 "train_step_trace.json")
 
 
-def profile_serving(device, sequence, trace_dir):
-    """Serving of one 64-frame sequence under the profiler, after one
-    warm-up run, in the main path's vitl configuration (device stitch)
-    and in the vits headline's (host stitch, its device->host copies
-    included): inference alone, without the metrics."""
-    from endodav_tpu_torch.eval import engine
-    from endodav_tpu_torch.eval.video_inference import infer_video_depth
+SERVING_PROFILES = (("vitl serving", VITL_ARGS),
+                    ("vits serving", [*HEADLINE, "--chunk_windows", "2"]),
+                    ("vitb EndoDAC serving", ENDODAC_VITB), ("vits EndoDAC serving", ENDODAC),
+                    ("AF-SfM serving", AFSFM))
 
-    for label, args in (("vitl serving", VITL_ARGS),
-                        ("vits serving", [*HEADLINE, "--chunk_windows", "2"])):
+
+def profile_serving(device, sequence, trace_dir, legs=SERVING_PROFILES):
+    """Serving of one 64-frame sequence under the profiler, after one
+    warm-up run, in the main path's vitl configuration (device stitch),
+    in the vits headline's (host stitch, its device->host copies
+    included) and on the single-frame path (EndoDAC vitb and vits,
+    AF-SfM on the sequence at 256x320): inference alone, without the
+    metrics."""
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.eval.video_inference import (infer_video_depth,
+                                                        infer_video_depth_single_frame)
+
+    for label, args in legs:
         opt = eval_options(args)
         forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
 
         def run():
+            if opt.model_type == "afsfm":
+                return infer_video_depth_single_frame(
+                    forward, half_size([sequence])[0]["colors"], device=device)
+            if opt.model_type == "endodac":
+                return infer_video_depth_single_frame(forward, sequence["colors"],
+                                                      device=device)
             return infer_video_depth(forward, sequence["colors"], tuple(opt.depth_image_shape),
                                      opt.chunk_windows, device,
                                      "device" if opt.fast_stitch else "host", forward.dedup)
@@ -1843,6 +2116,24 @@ def main() -> int:
                           expect={fused_mlp: 12}, **bf16),
         check_whole_model(device, pos_embedding_type="rope",
                           expect={temporal_attention: 8, block: 0}, **bf16)]
+    # the single-frame models: EndoDAC vits and vitb as built, vitb merged
+    # with the fused MLP (768 columns, a cluster of 3) and the fused RCU at
+    # C=128, vits with BatchNorm RCUs (never fused), AF-SfM
+    from endodav_tpu_torch.eval.engine import init_random_
+    from endodav_tpu_torch.models.endodac import EndoDAC
+
+    with_bn = lambda m: init_random_(EndoDAC(**{**m.config, "use_bn": True}), SEED).eval()  # noqa: E731
+    single_err = max(r["max"] for r in (
+        check_whole_model(device, ENDODAC, expect={flash: 12}),
+        check_whole_model(device, ENDODAC_VITB, frames=4, expect={flash: 12}),
+        check_whole_model(device, [*ENDODAC_VITB, "--merge_lora"], frames=4,
+                          env={"ENDODAV_FUSED_MLP": "1", "ENDODAV_FUSED_RCU": "1"},
+                          expect={flash: 12, fused_mlp: 12, fused_rcu: RCU_PER_SUFFIX}),
+        check_whole_model(device, ENDODAC, frames=4, env={"ENDODAV_FUSED_RCU": "1"},
+                          expect={flash: 12, fused_rcu: 0}, rebuild=with_bn),
+        check_whole_model(device, AFSFM, frames=4, expect={flash: 0, fused_rcu: 0})))
+    switch_rows = check_switches(device)
+    test_simple_err = check_test_simple(device)
 
     # one 64-frame sequence a leg: the host metrics of a 512x640 sequence
     # take most of a leg's wall time
@@ -1853,9 +2144,19 @@ def main() -> int:
                           env={"ENDODAV_FUSED_MLP": "1"}),
             run_main_path([*HEADLINE, "--chunk_windows", "2"], sequences, device,
                           env={"ENDODAV_FUSED_RCU": "1"}),
-            run_main_path([], sequences, device)]
+            run_main_path([], sequences, device),
+            # single-frame serving: EndoDAC vitb as built, then merged with the
+            # fused MLP and RCU, vits; AF-SfM on the sequence at 256x320
+            run_main_path(ENDODAC_VITB, sequences, device),
+            run_main_path([*ENDODAC_VITB, "--merge_lora"], sequences, device,
+                          env={"ENDODAV_FUSED_MLP": "1", "ENDODAV_FUSED_RCU": "1"}),
+            run_main_path(ENDODAC, sequences, device),
+            run_main_path(AFSFM, half_size(sequences), device)]
+    evaluate_row = run_evaluate_depth(device)
     for r in runs:
-        print(f"[main path] {r['name']}: {r['ms_per_frame']:.3f} ms/frame ({card})")
+        warm = (f", warm {r['warm_ms_per_frame']:.3f} (inference only)"
+                if "warm_ms_per_frame" in r else "")
+        print(f"[main path] {r['name']}: {r['ms_per_frame']:.3f} ms/frame{warm} ({card})")
     streams = [run_streaming(HEADLINE, sequences[0], device, env={"ENDODAV_FUSED_RCU": "1"}),
                run_streaming([], sequences[0], device, env={"ENDODAV_FUSED_RCU": "1"})]
     for r in streams:
@@ -1895,7 +2196,13 @@ def main() -> int:
         return next(r for r in rows if r["shape"] == shape and r["dtype"] == "float32")
 
     def served(name):
-        return sum(r["launches"][name] for r in runs + streams + bf16_legs + [baseline])
+        return sum(r["launches"][name]
+                   for r in runs + streams + bf16_legs + [baseline, evaluate_row])
+
+    def single_frame_shapes(rows, shapes):
+        """The rows of the single-frame path's shapes (both dtypes)."""
+        keys = ("shape", "dtype", "err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return [{k: r[k] for k in keys} for r in rows if r["shape"] in shapes]
 
     def at_bf16(name):
         return (sum(r["launches"][name] for r in bf16_legs)
@@ -1920,7 +2227,9 @@ def main() -> int:
               served("flash_attention") + trained["flash_attention"],
               max(f32(flash_rows), flash_grad_err),
               head_of(flash_rows, "B=64 N=1703 H=6 Dh=64"), "B=64 N=1703 H=6 Dh=64",
-              bf16_launches=at_bf16("flash_attention"), bf16_max_abs_err=bf16_err(flash_rows)),
+              bf16_launches=at_bf16("flash_attention"), bf16_max_abs_err=bf16_err(flash_rows),
+              single_frame=single_frame_shapes(flash_rows, ("B=8 N=321 H=6 Dh=64",
+                                                            "B=8 N=321 H=12 Dh=64"))),
         # one route and one counter for both TPU kernels; the C >= 512
         # share comes from the models' widths (the counter's total is
         # checked against the configuration in each run)
@@ -1945,11 +2254,15 @@ def main() -> int:
         entry("fused_mlp", "endodav_tpu_torch/csrc/fused_mlp.cu",
               "endodav_tpu/kernels/fused_mlp.py:73", served("fused_mlp"), f32(mlp_rows),
               head_of(mlp_rows, "rows=54496 384->1536->384"), "rows=54496 384->1536->384",
-              bf16_launches=at_bf16("fused_mlp"), bf16_max_abs_err=bf16_err(mlp_rows)),
+              bf16_launches=at_bf16("fused_mlp"), bf16_max_abs_err=bf16_err(mlp_rows),
+              single_frame=single_frame_shapes(mlp_rows, ("rows=2568 384->1536->384",
+                                                          "rows=2568 768->3072->768"))),
         entry("fused_rcu", "endodav_tpu_torch/csrc/fused_rcu.cu",
               "endodav_tpu/kernels/fused_rcu.py:80", served("fused_rcu"), f32(rcu_rows),
               head_of(rcu_rows, "[32,148,184,64]"), "[32,148,184,64]",
-              bf16_launches=at_bf16("fused_rcu"), bf16_max_abs_err=bf16_err(rcu_rows)),
+              bf16_launches=at_bf16("fused_rcu"), bf16_max_abs_err=bf16_err(rcu_rows),
+              single_frame=single_frame_shapes(rcu_rows, tuple(
+                  f"[8,{h},{w},{c}]" for c in (64, 128) for h, w in ENDODAC_RCU_HW))),
         entry("grid_sample_fwd", warp_src, f"{warp_py}:327", trained["grid_sample_fwd"],
               max(r["err_out"] for r in warp_rows), colour["fwd"],
               f"colour synthesis, {colour['shape']}"),
@@ -1989,6 +2302,8 @@ def main() -> int:
           f"{max(r['f32_product'] for r in tile_rows):.3e}")
     print(f"[summary] int8_dense {int8_row['ms']:.3f} ms vs f32 linear "
           f"{int8_row['f32_linear_ms']:.3f} ms at {int8_row['shape']} ({card})")
+    print(f"[summary] single-frame whole models max |Δdisp| {single_err:.3e}, test_simple "
+          f"{test_simple_err:.3e}; switches {switch_rows}")
     print(f"[summary] whole model max |Δdisp| {model_err:.3e}; training "
           f"{train['ms_per_step']:.1f} ms/step, peak {train['peak_bytes'] / 2 ** 30:.2f} GiB; "
           f"ENDODAV_WARP_CP=1 steps {[round(t, 1) for t in train['cp_step_ms']]} ms")

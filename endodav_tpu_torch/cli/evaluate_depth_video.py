@@ -1,10 +1,12 @@
 """Video depth benchmark on SCARED, served by the port.
 
 Run as ``python -m endodav_tpu_torch.cli.evaluate_depth_video --data_path
-<tree> [flags]``: builds the EndoDAV model from the flags, runs batched
-sliding-window inference per sequence, aligns, and prints the per-frame
-depth errors with TAE/TAS, the abs_rel 95% CI and the mean inference
-time per frame — the same lines as `endodav_tpu`'s CLI.
+<tree> [flags]``: builds the depth model from the flags, runs batched
+sliding-window inference per sequence (``--model_type endodav``) or
+frame-independent inference in batches of 8 (``endodac``, ``afsfm``: the
+paper's single-frame baselines), aligns, and prints the per-frame depth
+errors with TAE/TAS, the abs_rel 95% CI and the mean inference time per
+frame — the same lines as `endodav_tpu`'s CLI.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def report(result) -> list[str]:
 
 
 def evaluate(opt):
-    filenames = readlines(os.path.join(engine.SPLITS_DIR, opt.eval_split, "val_files.txt"))
+    filenames = readlines(os.path.join(engine.splits_dir(), opt.eval_split, "val_files.txt"))
     sequences = ScaredVideos(opt.data_path, filenames, pred_root=opt.pred_root)
     device = engine.resolve_device(opt)
     forward = None

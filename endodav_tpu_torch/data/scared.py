@@ -1,10 +1,12 @@
-"""SCARED datasets: the training clip sampler and the whole-sequence eval
-loader.
+"""SCARED datasets: the training clip sampler, the whole-sequence eval
+loader and the frame-level eval set.
 
 Port of `endodav_tpu/data/scared.py`: `ScaredVideoClips` (:30-193) in its
 device-preprocess layout (the scale-0 stack, the frame-window map and the
 jitter parameters; the pyramid and the jitter run on the card,
-`ops/jitter.py`), and `ScaredVideos` with the `pred_root` re-eval mode.
+`ops/jitter.py`), `ScaredVideos` with the `pred_root` re-eval mode, and
+`ScaredFrames` (:238-335), the ``endovis`` split of the single-frame eval
+(host pyramid and jitter, `data/pipeline.py`).
 Outputs are numpy, channels-last; batching happens in `data/loader.py`.
 """
 
@@ -18,7 +20,7 @@ import numpy as np
 from endodav_tpu_torch.data import pipeline, readers
 from endodav_tpu_torch.data.pipeline import pixel_intrinsics
 
-__all__ = ["ScaredVideoClips", "ScaredVideos"]
+__all__ = ["ScaredVideoClips", "ScaredVideos", "ScaredFrames"]
 
 
 class ScaredVideoClips:
@@ -128,3 +130,103 @@ class ScaredVideos:
     def __iter__(self):
         for i in range(len(self)):
             yield self[i]
+
+
+class ScaredFrames:
+    """Frame-level dataset for the endovis split (line format
+    'folder frame_idx side'; path scheme mono_dataset.py:41-72)."""
+
+    def __init__(
+        self,
+        data_path: str,
+        filenames: list[str],
+        height: int,
+        width: int,
+        frame_idxs=(0, -1, 1),
+        num_scales: int = 4,
+        is_train: bool = False,
+        seed: int = 314,
+    ):
+        self.data_path = data_path
+        self.filenames = filenames
+        self.height = height
+        self.width = width
+        self.frame_idxs = tuple(frame_idxs)
+        self.num_scales = num_scales
+        self.is_train = is_train
+        self.rng = np.random.default_rng(seed)
+        self.side_map = {"l": "left", "r": "right"}
+
+    def __len__(self):
+        return len(self.filenames)
+
+    @staticmethod
+    def _split_prefix(folder: str) -> str:
+        # dataset number < 8 lives under train/ (scared_dataset.py:44-48)
+        return "train" if int(folder[7]) < 8 else "test"
+
+    def _frame_path(self, folder: str, frame_index: int, side: str) -> str:
+        return os.path.join(
+            self.data_path, self._split_prefix(folder), folder, "data",
+            self.side_map[side], f"{frame_index:010d}.png",
+        )
+
+    def _depth_path(self, folder: str, frame_index: int) -> str:
+        return os.path.join(
+            self.data_path, self._split_prefix(folder), folder, "data",
+            "scene_points", f"scene_points{frame_index:06d}.tiff",
+        )
+
+    def get_pose(self, folder: str, frame_index: int) -> np.ndarray:
+        """c2w pose (pinv of the stored w2c, scared_dataset.py:74-85)."""
+        path = os.path.join(
+            self.data_path, self._split_prefix(folder), folder, "data",
+            "frame_data", f"frame_data{frame_index:06d}.json",
+        )
+        return np.linalg.pinv(readers.read_pose_json(path))
+
+    def __getitem__(self, index: int) -> dict:
+        rng = self.rng
+        parts = self.filenames[index].split()
+        folder = parts[0]
+        frame_index = int(parts[1]) if len(parts) == 3 else 0
+        side = parts[2] if len(parts) == 3 else "l"
+
+        do_aug = self.is_train and rng.random() > 0.5
+        do_flip = self.is_train and rng.random() > 0.5
+        jit = pipeline.sample_color_jitter(rng) if do_aug else None
+
+        inputs = {}
+        for fi in self.frame_idxs:
+            if fi == "s":
+                path = self._frame_path(folder, frame_index, {"l": "r", "r": "l"}[side])
+            else:
+                path = self._frame_path(folder, frame_index + fi, side)
+            img = readers.read_image(path).astype(np.float32) / 255.0
+            if do_flip:
+                img = img[:, ::-1]
+            cs, cas = pipeline.build_pyramid(img[None], self.height, self.width, self.num_scales, jit)
+            for s in range(self.num_scales):
+                inputs[("color", fi, s)] = cs[s][0]
+                inputs[("color_aug", fi, s)] = cas[s][0]
+
+        if not self.is_train:
+            dpath = self._depth_path(folder, frame_index)
+            if os.path.exists(dpath):
+                d = readers.read_scared_depth(dpath)
+                if do_flip:
+                    d = d[:, ::-1]
+                inputs["depth_gt"] = d[..., None]
+
+        for s in range(self.num_scales):
+            K, inv_K = pipeline.scaled_intrinsics(self.width, self.height, s)
+            inputs[("K", s)] = K
+            inputs[("inv_K", s)] = inv_K
+
+        if "s" in self.frame_idxs:
+            stereo_T = np.eye(4, dtype=np.float32)
+            baseline_sign = -1 if do_flip else 1
+            side_sign = -1 if side == "l" else 1
+            stereo_T[0, 3] = side_sign * baseline_sign * 0.1
+            inputs["stereo_T"] = stereo_T
+        return inputs

@@ -1,17 +1,27 @@
-"""Video-depth evaluation engine of the port.
+"""Depth evaluation engine of the port.
 
-Port of the EndoDAV serving part of `endodav_tpu/eval/engine.py`:
-`build_depth_model` (random init from ``--seed``, reference .pth load,
-``--merge_lora``), `depth_window_forward` (the whole-model window
-forward with the serving defaults of `endodav_tpu/eval/engine.py:248-295`:
-int8 GEMMs for the merged vitl graph, dedup at >= 512 patch tokens) and
-`evaluate_video_sequences` (window or dedup inference, host or device
-stitch, alignment, per-frame depth errors, TAE/TAS), with the same
-protocol constants: MIN_DEPTH=1e-3, MAX_DEPTH=150, 95% CI.
+Port of the serving part of `endodav_tpu/eval/engine.py`:
+`build_depth_model` (EndoDAV, EndoDAC or AF-SfM from ``--model_type``;
+random init from ``--seed``, reference .pth loads, ``--merge_lora``),
+`depth_window_forward` (EndoDAV's whole-model window forward with the
+serving defaults of `endodav_tpu/eval/engine.py:248-295`: int8 GEMMs for
+the merged vitl graph, dedup at >= 512 patch tokens; a single-frame
+model's batch forward) and `evaluate_video_sequences` (window, dedup or
+single-frame inference, host or device stitch, alignment, per-frame depth
+errors, TAE/TAS), with the same protocol constants: MIN_DEPTH=1e-3,
+MAX_DEPTH=150, 95% CI; and the report lines the depth CLIs share,
+`print_alignment_summary` and `print_ci_row`.
+
+The kernels' A/B switches are read where JAX reads them (each is an
+explicit leg, never a fallback): ``ENDODAV_NO_FLASH`` (`ops/attention.py`),
+``ENDODAV_NO_FUSED`` and ``ENDODAV_FUSED_TRAIN`` (`models/motion.py`),
+``ENDODAV_NO_WARP_MM`` (`ops/sampling.py`), ``ENDODAV_LOWRES_OUTCONV``
+(`models/dpt.py`); `depth_window_forward` prints those that are set.
 
 The JAX engine's ``ENDODAV_SCAN_TRUNK`` and ``ENDODAV_SPLIT_COMPILE`` only
 change how XLA compiles the same function; the port runs eagerly and has
-neither.
+neither.  Not ported: msgpack checkpoints, the ``dash`` phase-2 wrapper
+(`_DashPhase2Model`) and ``--serve_mesh``.
 """
 
 from __future__ import annotations
@@ -25,20 +35,37 @@ import torch
 
 from endodav_tpu_torch.eval import metrics as M
 from endodav_tpu_torch.eval.video_inference import (DedupWindowForward, dedup_by_default,
-                                                    infer_video_depth)
+                                                    infer_video_depth,
+                                                    infer_video_depth_single_frame)
 from endodav_tpu_torch.geometry.transforms import disp_to_depth
+from endodav_tpu_torch.models.afsfm import AFSfMDepth
+from endodav_tpu_torch.models.endodac import EndoDAC, endodac_lora_alpha
 from endodav_tpu_torch.models.endodav import EndoDAV, endodav_lora_alpha
 from endodav_tpu_torch.models.lora import merge_lora_params
 from endodav_tpu_torch.utils.convert import load_reference_pth
 from endodav_tpu_torch.utils.precision import set_f32_policy
 
-__all__ = ["SPLITS_DIR", "resolve_device", "init_random_", "build_depth_model",
-           "depth_window_forward", "evaluate_video_sequences", "confidence_interval_95"]
+__all__ = ["SPLITS_DIR", "splits_dir", "resolve_device", "init_random_", "build_depth_model",
+           "depth_window_forward", "evaluate_video_sequences", "confidence_interval_95",
+           "print_alignment_summary", "print_ci_row", "SERVE_SWITCHES"]
 
-SPLITS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+_DEFAULT_SPLITS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "splits")
+# the split files; ENDODAV_TPU_SPLITS_DIR names another directory (JAX :75-78)
+SPLITS_DIR = os.environ.get("ENDODAV_TPU_SPLITS_DIR", _DEFAULT_SPLITS)
 MIN_DEPTH = 1e-3
 MAX_DEPTH = 150.0
+# the switches `depth_window_forward` reports (JAX :246-251, less the two
+# XLA compile strategies, plus the port's opt-in kernel routes)
+SERVE_SWITCHES = ("ENDODAV_NO_FLASH", "ENDODAV_NO_FUSED", "ENDODAV_NO_WARP_MM", "ENDODAV_INT8",
+                  "ENDODAV_FUSED_RCU", "ENDODAV_FUSED_MLP", "ENDODAV_LOWRES_OUTCONV",
+                  "ENDODAV_NO_DEDUP", "ENDODAV_DEDUP")
+
+
+def splits_dir() -> str:
+    """The split directory as the environment names it now (a caller may
+    set ``ENDODAV_TPU_SPLITS_DIR`` after this module is imported)."""
+    return os.environ.get("ENDODAV_TPU_SPLITS_DIR", _DEFAULT_SPLITS)
 
 
 def resolve_device(opt) -> torch.device:
@@ -78,41 +105,72 @@ def init_random_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
-def _make_model(opt, lora_type: str, temporal_lora: bool) -> EndoDAV:
-    if opt.model_type != "endodav":
-        raise ValueError(f"model_type {opt.model_type!r} is not ported; only endodav serves")
-    return EndoDAV(
-        encoder=opt.encoder, r=opt.lora_rank, lora_type=lora_type,
-        image_shape=tuple(opt.depth_image_shape),
-        residual_block_indexes=[] if opt.disable_residual_block else opt.residual_block_indexes,
-        include_cls_token=opt.include_cls_token, inv_sigmoid=opt.inv_sigmoid,
-        temporal_lora=temporal_lora, conv_head=not opt.disable_conv_head,
-        out_sigmoid=opt.out_sigmoid)
+def _make_model(opt, lora_type: str, temporal_lora: bool):
+    residual = [] if opt.disable_residual_block else opt.residual_block_indexes
+    if opt.model_type == "endodav":
+        return EndoDAV(
+            encoder=opt.encoder, r=opt.lora_rank, lora_type=lora_type,
+            image_shape=tuple(opt.depth_image_shape), residual_block_indexes=residual,
+            include_cls_token=opt.include_cls_token, inv_sigmoid=opt.inv_sigmoid,
+            temporal_lora=temporal_lora, conv_head=not opt.disable_conv_head,
+            out_sigmoid=opt.out_sigmoid)
+    if opt.model_type == "endodac":
+        # JAX trainer.build_models: any other encoder serves vits
+        return EndoDAC(
+            backbone_size={"vits": "vits", "vitb": "vitb"}.get(opt.encoder, "vits"),
+            r=opt.lora_rank, lora_type=lora_type, image_shape=tuple(opt.depth_image_shape),
+            residual_block_indexes=residual, include_cls_token=opt.include_cls_token,
+            pre_norm=opt.pre_norm, inv_sigmoid=opt.inv_sigmoid,
+            conv_head=not opt.disable_conv_head)
+    if opt.model_type == "afsfm":
+        return AFSfMDepth(opt.num_layers, tuple(opt.scales))
+    raise ValueError(f"model_type {opt.model_type!r} is not ported")
 
 
-def build_depth_model(opt, device: torch.device | None = None) -> EndoDAV:
-    """The EndoDAV model in eval mode on ``device``: seeded random weights,
-    replaced by a reference .pth when one is found, LoRA merged on
-    ``--merge_lora``; the f32 policy (`set_f32_policy`) set first."""
+def _weight_files(opt) -> list[tuple[str, str]]:
+    """(submodule, path) of each reference .pth to load (JAX :113-164):
+    AF-SfM's two component files, ``encoder.pth`` and ``depth.pth``, from
+    ``--load_weights_folder`` (those present); else ``depth_model.pth``
+    there, or the pretrained file of ``--pretrained_path``
+    (``video_depth_anything_<enc>.pth`` for EndoDAV,
+    ``depth_anything_v2_<enc>.pth`` for EndoDAC)."""
+    if opt.load_weights_folder:
+        folder = os.path.expanduser(opt.load_weights_folder)
+        if opt.model_type == "afsfm":
+            files = [(sub, os.path.join(folder, f"{sub}.pth")) for sub in ("encoder", "depth")]
+            found = [f for f in files if os.path.exists(f[1])]
+            if not found:
+                raise FileNotFoundError(f"no encoder.pth or depth.pth in {folder}")
+            return found
+        return [("", os.path.join(folder, "depth_model.pth"))]
+    if opt.pretrained_path and opt.model_type != "afsfm":
+        name = (f"video_depth_anything_{opt.encoder}.pth" if opt.model_type == "endodav"
+                else f"depth_anything_v2_{opt.encoder}.pth")
+        return [("", os.path.join(opt.pretrained_path, name))]
+    return []
+
+
+def build_depth_model(opt, device: torch.device | None = None) -> torch.nn.Module:
+    """The depth model of ``--model_type`` in eval mode on ``device``:
+    seeded random weights, replaced by the reference .pth files that
+    `_weight_files` names, LoRA merged on ``--merge_lora`` (with the
+    model's own alpha); the f32 policy (`set_f32_policy`) set first."""
     device = resolve_device(opt) if device is None else device
     set_f32_policy()
     model = init_random_(_make_model(opt, opt.lora_type, opt.temporal_lora), opt.seed)
-    path = None
-    if opt.load_weights_folder:
-        path = os.path.join(os.path.expanduser(opt.load_weights_folder), "depth_model.pth")
-    elif opt.pretrained_path:
-        path = os.path.join(opt.pretrained_path, f"video_depth_anything_{opt.encoder}.pth")
-    if path is not None:
+    files = _weight_files(opt)
+    for sub, path in files:
         if not os.path.exists(path):
             raise FileNotFoundError(f"no weights at {path}")
-        report = load_reference_pth(model, path)
+        report = load_reference_pth(model.get_submodule(sub), path)
         print(f"[eval] loaded {report['loaded']} tensors from {path} "
               f"({len(report['missing'])} missing, {len(report['unexpected'])} unexpected)")
-    else:
+    if not files:
         print(f"[eval] no weights given; random init from seed {opt.seed}")
-    if opt.merge_lora and opt.lora_type != "none":
+    if opt.merge_lora and opt.lora_type != "none" and opt.model_type != "afsfm":
         r = opt.lora_rank
-        alpha = endodav_lora_alpha(opt.lora_type, r)
+        alpha = (endodav_lora_alpha if opt.model_type == "endodav"
+                 else endodac_lora_alpha)(opt.lora_type, r)
         merged = merge_lora_params(model.state_dict(), opt.lora_type, r, alpha)
         model = _make_model(opt, "none", False)
         model.load_state_dict(merged, strict=True)
@@ -120,16 +178,32 @@ def build_depth_model(opt, device: torch.device | None = None) -> EndoDAV:
     return model.to(device).eval()
 
 
-def depth_window_forward(model: EndoDAV):
-    """[C, T, h, w, 3] -> [C*T, h', w', 1] sigmoid disparity at scale 0, with
-    the serving defaults: int8 GEMMs for the merged vitl graph (unless
+def depth_window_forward(model: torch.nn.Module):
+    """EndoDAV: [C, T, h, w, 3] -> [C*T, h', w', 1] sigmoid disparity at
+    scale 0, with the serving defaults: int8 GEMMs for the merged vitl graph (unless
     ``ENDODAV_INT8`` is set either way), on a shallow copy of ``model`` so
     that the decision stays with this forward and no env var is written;
     and ``fwd.dedup``, a `DedupWindowForward` where `dedup_by_default`
     picks it (else None).  A model built in bf16 (``EndoDAV(...,
     dtype=torch.bfloat16)`` or ``model.clone(dtype=torch.bfloat16)``, as the
     TPU benchmark builds its headline) serves through both in bf16, int8
-    included at vitl."""
+    included at vitl.
+
+    A single-frame model (EndoDAC, AF-SfM): [B, h, w, 3] -> [B, h', w', 1],
+    with ``fwd.dedup`` None (JAX :395-405).  Prints the model type and the
+    A/B switches set (`SERVE_SWITCHES`)."""
+    switches = [n for n in SERVE_SWITCHES if os.environ.get(n)]
+    model_type = getattr(model, "model_type", "endodav")
+    print(f"[serve] forward: model_type={model_type}"
+          + (f" env={'+'.join(switches)}" if switches else ""))
+    if model_type != "endodav":
+        def fwd_single(batch: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                return model(batch)[("disp", 0)]
+
+        fwd_single.dedup = None
+        fwd_single.model = model
+        return fwd_single
     if model.encoder == "vitl" and model.lora_type == "none" and "ENDODAV_INT8" not in os.environ:
         model = copy.copy(model)
         model.int8_serving = True
@@ -154,8 +228,31 @@ def confidence_interval_95(values):
                                   scale=st.sem(values)))
 
 
+def print_alignment_summary(depth_align, ratios, align_stats=()):
+    """The alignment summary line of the depth eval CLIs (JAX :419-429)."""
+    if depth_align == "scale" and len(ratios):
+        med = np.median(ratios)
+        print(f" Scaling ratios | med: {med:.3f} | std: {np.std(ratios / med):.3f}")
+    elif len(align_stats):
+        a = np.array(align_stats, dtype=np.float64)
+        print(" Aligning shift and scale | t_gt: {:.3f} | s_gt: {:.3f} | "
+              "t_pred: {:.3f} | s_pred: {:.3f}".format(*a.mean(axis=0)))
+
+
+def print_ci_row(*error_arrays):
+    """The per-metric 95%-CI ``cls:`` row of the depth eval CLIs over one or
+    more [N, K] per-frame error arrays (JAX :432-444)."""
+    arrays = [np.asarray(a) for a in error_arrays if len(a)]
+    if not arrays:
+        print("cls: (no valid frames — every gt mask was empty)")
+        return
+    cls = [confidence_interval_95(a[:, i]) for a in arrays for i in range(a.shape[1])]
+    print("cls: " + " ".join(f"[{lo:.4f}, {hi:.4f}]" for lo, hi in cls))
+
+
 def evaluate_video_sequences(opt, sequences, forward=None, device=None):
-    """Shared video-depth benchmark loop.
+    """Shared video-depth benchmark loop; ``opt.model_type`` picks the
+    window pipeline (endodav) or the single-frame one (endodac, afsfm).
 
     sequences: iterable of dicts with colors/depths/poses/Ks/filename (or
     depths + pred_depths in re-eval mode).  Returns per-sequence and mean
@@ -170,11 +267,14 @@ def evaluate_video_sequences(opt, sequences, forward=None, device=None):
                 _, pred_depths = disp_to_depth(pred_depths, opt.min_depth, opt.max_depth)
         else:
             t0 = time.perf_counter()
-            disp = infer_video_depth(forward, data["colors"],
-                                     image_shape=tuple(opt.depth_image_shape),
-                                     chunk_windows=opt.chunk_windows, device=device,
-                                     stitch="device" if opt.fast_stitch else "host",
-                                     dedup=getattr(forward, "dedup", None))
+            if opt.model_type == "endodav":
+                disp = infer_video_depth(forward, data["colors"],
+                                         image_shape=tuple(opt.depth_image_shape),
+                                         chunk_windows=opt.chunk_windows, device=device,
+                                         stitch="device" if opt.fast_stitch else "host",
+                                         dedup=getattr(forward, "dedup", None))
+            else:
+                disp = infer_video_depth_single_frame(forward, data["colors"], device=device)
             infer_times.append((time.perf_counter() - t0) / len(data["colors"]) * 1000.0)
             _, pred_depths = disp_to_depth(disp, opt.min_depth, opt.max_depth)
 

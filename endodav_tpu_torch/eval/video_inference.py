@@ -1,7 +1,9 @@
 """Sliding-window full-video depth inference on one device.
 
 Port of `endodav_tpu/eval/video_inference.py:infer_video_depth`: the
-window path, the dedup path (`DedupWindowForward`) and both stitches.
+window path, the dedup path (`DedupWindowForward`) and both stitches;
+and of `infer_video_depth_single_frame`, the frame-independent inference
+of a single-frame model (EndoDAC, AF-SfM).
 Every window's 32 source-frame indices are known up front
 (`window_indices` resolves the reference's keyframe-carry recurrence), so
 windows batch `chunk_windows` at a time; only the scale/shift stitch runs
@@ -41,8 +43,9 @@ from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.utils.envflags import env_auto, env_on
 
 __all__ = ["keep_aspect_size", "window_indices", "stitch_plan", "infer_video_depth",
+           "infer_video_depth_single_frame",
            "DedupWindowForward", "dedup_wins", "dedup_by_default", "frame_scale",
-           "upload_resized", "window_chunk_forward", "torch_dtype"]
+           "upload", "upload_resized", "window_chunk_forward", "torch_dtype"]
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -267,19 +270,22 @@ def frame_scale(frames: np.ndarray) -> float:
     return 255.0 if float(np.max(frames)) > 1.5 else 1.0
 
 
-def upload_resized(frames: np.ndarray, scale: float, th: int, tw: int,
-                   device: torch.device) -> torch.Tensor:
-    """Frames [n, H, W, 3] uploaded as their own dtype (pinned on CUDA),
-    divided by ``scale`` and bicubic-resized (align_corners=False) to
-    (th, tw) on the device: the per-window preprocess of the JAX package
-    (`eval/video_inference.py:_pre_fn`, `eval/streaming.py:108-126`)."""
+def upload(frames: np.ndarray, scale: float, device: torch.device) -> torch.Tensor:
+    """Frames [n, H, W, 3] uploaded as their own dtype (pinned on CUDA) and
+    divided by ``scale`` on the device, f32."""
     src = torch.from_numpy(np.ascontiguousarray(frames))
     if device.type == "cuda":
         src = src.pin_memory()
     slab = src.to(device, non_blocking=True).float()
-    if scale != 1.0:
-        slab = slab / scale
-    return resize2d(slab, (th, tw), "bicubic", align_corners=False)
+    return slab / scale if scale != 1.0 else slab
+
+
+def upload_resized(frames: np.ndarray, scale: float, th: int, tw: int,
+                   device: torch.device) -> torch.Tensor:
+    """`upload`, then a bicubic resize (align_corners=False) to (th, tw) on
+    the device: the per-window preprocess of the JAX package
+    (`eval/video_inference.py:_pre_fn`, `eval/streaming.py:108-126`)."""
+    return resize2d(upload(frames, scale, device), (th, tw), "bicubic", align_corners=False)
 
 
 def window_chunk_forward(forward_windows: Callable[[torch.Tensor], torch.Tensor], fh: int,
@@ -377,3 +383,37 @@ def infer_video_depth(
         outs = [o.cpu().float() for o in outs]
     depth_windows = torch.cat(outs).numpy()[: num_windows * INFER_LEN]
     return _stitch(depth_windows.reshape(num_windows, INFER_LEN, fh, fw), n)
+
+
+def infer_video_depth_single_frame(
+    forward_batch: Callable[[torch.Tensor], torch.Tensor],
+    frames: np.ndarray,
+    batch_size: int = 8,
+    transfer_dtype=np.float32,
+    device: torch.device | str = "cuda",
+) -> np.ndarray:
+    """Frame-independent inference in batches of ``batch_size``
+    (`endodav_tpu/eval/video_inference.py:673-737`).
+
+    forward_batch: [B, H, W, 3] in [0, 1] -> [B, h', w', 1] disparity.
+    frames: [N, H, W, 3] uint8, or float in [0, 255] or [0, 1]; each batch
+      uploads as its own dtype and is scaled to [0, 1] on the device.
+    Each batch's disparity is upsampled (bilinear, align_corners=True) to
+    the source size and crosses to the host in ``transfer_dtype``.  The
+    last batch runs at its own size: JAX pads it with copies of the last
+    frame for XLA's static shapes, and frames are independent.  Returns
+    [N, H, W] f32.
+    """
+    device = torch.device(device)
+    n, fh, fw, _ = frames.shape
+    if frames.dtype != np.uint8:
+        frames = np.asarray(frames, np.float32)
+    scale = frame_scale(frames)
+    transfer = torch_dtype(transfer_dtype)
+    outs = []
+    with torch.inference_mode():
+        for b0 in range(0, n, batch_size):
+            batch = upload(frames[b0:b0 + batch_size], scale, device)
+            disp = resize2d(forward_batch(batch), (fh, fw), "bilinear", align_corners=True)
+            outs.append(disp[..., 0].to(transfer))
+        return torch.cat(outs).cpu().float().numpy()

@@ -1,14 +1,16 @@
-"""Pose, intrinsics, position (optical-flow) and transform (appearance-flow)
-decoders.
+"""Pose, intrinsics, position (optical-flow), transform (appearance-flow)
+and depth decoders.
 
-Port of `endodav_tpu/models/decoders.py:81-188`, channels-last:
+Port of `endodav_tpu/models/decoders.py:81-207`, channels-last:
   * PoseDecoder: squeeze 1x1 -> two 3x3 -> 1x1 -> mean-pool -> 0.001 *
     6-DoF for 2 frames, plus the intermediate map the intrinsics head reads
   * IntrinsicsHead: pooled pose feature -> softplus focal (+0.5, times W/H)
     and offsets -> 4x4 K
   * PositionDecoder / TransformDecoder: the monodepth U-Net over the ResNet
     pyramid (reflect-padded 3x3 convs + ELU, 2x bilinear align_corners=False
-    upsampling) -> 2-ch flow / 3-ch tanh appearance flow at 4 scales.
+    upsampling) -> 2-ch flow / 3-ch tanh appearance flow at 4 scales
+  * DepthDecoder: the same U-Net -> reflect-padded 3x3 -> sigmoid
+    disparity at 4 scales (the legacy AF-SfM model, `models/afsfm.py`).
 Parameter names are the reference's (``convs.upconv_4_0.conv.conv.weight``,
 ``convs.position_conv_0.weight``, ``focal_length_conv.weight`` ...).
 """
@@ -24,7 +26,8 @@ import torch.nn.functional as F
 from endodav_tpu_torch.models.cast import conv_nhwc
 from endodav_tpu_torch.ops.resize import resize2d
 
-__all__ = ["PoseDecoder", "IntrinsicsHead", "PositionDecoder", "TransformDecoder"]
+__all__ = ["PoseDecoder", "IntrinsicsHead", "PositionDecoder", "TransformDecoder",
+           "DepthDecoder"]
 
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
@@ -166,4 +169,19 @@ class TransformDecoder(_UNetDecoder):
     def forward(self, features):
         lv = self.levels(features)
         return {("transform", s): torch.tanh(self.convs[f"transform_conv_{s}"](lv[s]))
+                for s in self.scales}
+
+
+class DepthDecoder(_UNetDecoder):
+    """1-channel sigmoid disparity at each scale: {("disp", s)}."""
+
+    def __init__(self, num_ch_enc: Sequence[int], scales: Sequence[int] = (0, 1, 2, 3),
+                 num_output_channels: int = 1):
+        super().__init__(num_ch_enc, scales)
+        for s in self.scales:
+            self.convs[f"dispconv_{s}"] = Conv3x3(NUM_CH_DEC[s], num_output_channels)
+
+    def forward(self, features):
+        lv = self.levels(features)
+        return {("disp", s): torch.sigmoid(self.convs[f"dispconv_{s}"](lv[s]))
                 for s in self.scales}

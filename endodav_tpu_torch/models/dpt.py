@@ -1,13 +1,24 @@
-"""Temporal DPT decoder over four ViT taps -> multi-scale disparity.
+"""DPT decoder over four ViT taps -> multi-scale disparity.
 
-Port of `endodav_tpu/models/dpt.py` for the EndoDAV serving path (no
-BatchNorm, no cls readout): per-tap 1x1 projections and resize stages,
-3x3 "scratch" convs, four FeatureFusionBlocks in the reference out_conv
-order, TemporalModules on layer_3/layer_4 and path_4/path_3, and either
-the multi-scale HeadDepth sigmoid heads or the single output-conv head.
+Port of `endodav_tpu/models/dpt.py`: per-tap 1x1 projections (after the
+optional cls readout, ``use_clstoken``: Linear over [tokens, cls] and an
+exact GELU) and resize stages, 3x3 "scratch" convs, four
+FeatureFusionBlocks in the reference out_conv order, with ``temporal``
+TemporalModules on layer_3/layer_4 and path_4/path_3 (EndoDAV's head;
+EndoDAC's is built with ``temporal=False`` and has none), and either the
+multi-scale HeadDepth sigmoid heads or the single output-conv head.
 ``prefix`` is strictly per frame; ``suffix`` holds everything that mixes
 frames.  Maps are channels-last [B*T, H, W, C]; parameter names follow
-the reference state-dict keys under ``head.``.
+the reference state-dict keys under ``head.`` (EndoDAV) or
+``depth_head.`` (EndoDAC).
+
+``use_bn`` puts a BatchNorm after each RCU conv (``bn1``, ``bn2``), run
+with its running statistics (`models/resnet.py:BatchNorm`, flax's
+arithmetic) and computed in f32 as flax's ``nn.BatchNorm`` promotes it;
+such a unit never takes the fused kernel (JAX :77-78), and training one
+is not ported.  ``ENDODAV_LOWRES_OUTCONV`` runs each fusion block's 1x1
+out_conv before its bilinear upsample, the A/B order of JAX's
+`FeatureFusionBlock` (:145-147); the two orders commute exactly.
 
 At serving (``train=False``) a ResidualConvUnit of at most 128 channels
 runs the fused CUDA kernel under ``ENDODAV_FUSED_RCU``, exactly where JAX
@@ -32,8 +43,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from endodav_tpu_torch.kernels.fused_rcu import MAX_CHANNELS, fused_rcu
-from endodav_tpu_torch.models.cast import conv_nhwc
+from endodav_tpu_torch.models.cast import conv_nhwc, dense
 from endodav_tpu_torch.models.motion import TemporalModule
+from endodav_tpu_torch.models.resnet import BatchNorm
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.utils.envflags import env_on
 
@@ -45,16 +57,27 @@ def _up(x, size):
 
 
 class ResidualConvUnit(nn.Module):
-    """relu -> conv3x3 -> relu -> conv3x3, plus the skip."""
+    """relu -> conv3x3 [-> bn] -> relu -> conv3x3 [-> bn], plus the skip."""
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32, use_bn: bool = False):
         super().__init__()
         self.features = features
         self.dtype = dtype
+        self.use_bn = use_bn
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        if use_bn:
+            self.bn1 = BatchNorm(features)
+            self.bn2 = BatchNorm(features)
 
     def forward(self, x, train: bool = False):
+        if self.use_bn:
+            if train:
+                raise NotImplementedError("training a BatchNorm head (EndoDAC) is not ported")
+            y = self.bn1(conv_nhwc(self.conv1, F.relu(x.to(self.dtype)), self.dtype).float(),
+                         False)
+            y = self.bn2(conv_nhwc(self.conv2, F.relu(y), self.dtype).float(), False)
+            return y + x
         if (not train and self.features <= MAX_CHANNELS and x.shape[-1] == self.features
                 and env_on("ENDODAV_FUSED_RCU")):
             return fused_rcu(x, self.conv1, self.conv2)
@@ -65,16 +88,17 @@ class ResidualConvUnit(nn.Module):
 
 class FeatureFusionBlock(nn.Module):
     """Fuse an optional skip, refine, upsample (align_corners=True), then
-    the 1x1 out_conv at the upsampled resolution (reference order).  The
-    pyramid top (refinenet4) never receives a skip and has no
-    resConfUnit1."""
+    the 1x1 out_conv at the upsampled resolution (reference order; before
+    it under ``ENDODAV_LOWRES_OUTCONV``).  The pyramid top (refinenet4)
+    never receives a skip and has no resConfUnit1."""
 
-    def __init__(self, features: int, has_skip: bool = True, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, has_skip: bool = True, dtype: torch.dtype = torch.float32,
+                 use_bn: bool = False):
         super().__init__()
         self.dtype = dtype
         if has_skip:
-            self.resConfUnit1 = ResidualConvUnit(features, dtype)
-        self.resConfUnit2 = ResidualConvUnit(features, dtype)
+            self.resConfUnit1 = ResidualConvUnit(features, dtype, use_bn)
+        self.resConfUnit2 = ResidualConvUnit(features, dtype, use_bn)
         self.out_conv = nn.Conv2d(features, features, 1)
 
     def forward(self, x, skip=None, size: tuple[int, int] | None = None, train: bool = False):
@@ -83,6 +107,8 @@ class FeatureFusionBlock(nn.Module):
         x = self.resConfUnit2(x, train)
         if size is None:
             size = (x.shape[1] * 2, x.shape[2] * 2)
+        if env_on("ENDODAV_LOWRES_OUTCONV"):
+            return _up(conv_nhwc(self.out_conv, x, self.dtype), tuple(size))
         return conv_nhwc(self.out_conv, _up(x, tuple(size)), self.dtype)
 
 
@@ -108,16 +134,15 @@ class HeadDepth(nn.Module):
 
 class Scratch(nn.Module):
     def __init__(self, features: int, out_channels: Sequence[int], conv_head: bool,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_bn: bool = False):
         super().__init__()
         self.dtype = dtype
         for i in range(4):
             setattr(self, f"layer{i + 1}_rn",
                     nn.Conv2d(out_channels[i], features, 3, padding=1, bias=False))
-        self.refinenet1 = FeatureFusionBlock(features, dtype=dtype)
-        self.refinenet2 = FeatureFusionBlock(features, dtype=dtype)
-        self.refinenet3 = FeatureFusionBlock(features, dtype=dtype)
-        self.refinenet4 = FeatureFusionBlock(features, has_skip=False, dtype=dtype)
+        for i in (1, 2, 3, 4):
+            setattr(self, f"refinenet{i}",
+                    FeatureFusionBlock(features, has_skip=i != 4, dtype=dtype, use_bn=use_bn))
         if not conv_head:
             self.output_conv1 = nn.Conv2d(features, features // 2, 3, padding=1)
             self.output_conv2 = nn.ModuleList([
@@ -138,12 +163,19 @@ class DPTDecoder(nn.Module):
                  num_frames: int = 32, conv_head: bool = True, inv_sigmoid: bool = False,
                  out_sigmoid: bool = False, temporal_lora_variant: str = "none",
                  lora_rank: int = 4, lora_alpha: float | None = None,
-                 pos_embedding_type: str = "ape", dtype: torch.dtype = torch.float32):
+                 pos_embedding_type: str = "ape", dtype: torch.dtype = torch.float32,
+                 temporal: bool = True, use_bn: bool = False, use_clstoken: bool = False):
         super().__init__()
         self.dtype = dtype
         self.conv_head = conv_head
         self.inv_sigmoid = inv_sigmoid
         self.out_sigmoid = out_sigmoid
+        self.temporal = temporal
+        self.use_clstoken = use_clstoken
+        if use_clstoken:
+            self.readout_projects = nn.ModuleList(
+                nn.Sequential(nn.Linear(2 * in_channels, in_channels), nn.GELU())
+                for _ in range(4))
         self.projects = nn.ModuleList(nn.Conv2d(in_channels, oc, 1) for oc in out_channels)
         # torch Conv2d(k=3, s=2, padding=1) pads (1, 1) on both sides
         self.resize_layers = nn.ModuleList([
@@ -155,10 +187,11 @@ class DPTDecoder(nn.Module):
             ch, temporal_max_len=num_frames, pos_embedding_type=pos_embedding_type,
             lora_variant=temporal_lora_variant, lora_rank=lora_rank, lora_alpha=lora_alpha,
             dtype=dtype)
-        self.motion_modules = nn.ModuleList([
-            motion(out_channels[2]), motion(out_channels[3]), motion(features),
-            motion(features)])
-        self.scratch = Scratch(features, out_channels, conv_head, dtype)
+        if temporal:
+            self.motion_modules = nn.ModuleList([
+                motion(out_channels[2]), motion(out_channels[3]), motion(features),
+                motion(features)])
+        self.scratch = Scratch(features, out_channels, conv_head, dtype, use_bn)
         if conv_head:
             for i in (1, 2, 3, 4):
                 setattr(self, f"conv_depth_{i}", HeadDepth(features, dtype))
@@ -168,7 +201,11 @@ class DPTDecoder(nn.Module):
         ph, pw = patch_hw
         dt = self.dtype
         maps = []
-        for i, (tokens, _cls) in enumerate(taps):
+        for i, (tokens, cls) in enumerate(taps):
+            if self.use_clstoken:
+                readout = cls[:, None, :].expand_as(tokens)
+                tokens = F.gelu(dense(self.readout_projects[i][0],
+                                      torch.cat([tokens, readout], dim=-1), dt))
             x = tokens.reshape(tokens.shape[0], ph, pw, tokens.shape[-1])
             x = conv_nhwc(self.projects[i], x, dt)
             if i != 2:
@@ -185,15 +222,17 @@ class DPTDecoder(nn.Module):
         RCUs off the fused kernel."""
         layer_1_rn, layer_2_rn, layer_3, layer_4 = maps
         s = self.scratch
-        layer_3 = self.motion_modules[0](layer_3, frames, train)
-        layer_4 = self.motion_modules[1](layer_4, frames, train)
+        motion = (self.motion_modules if self.temporal
+                  else [lambda y, frames, train: y] * 4)
+        layer_3 = motion[0](layer_3, frames, train)
+        layer_4 = motion[1](layer_4, frames, train)
         layer_3_rn = conv_nhwc(s.layer3_rn, layer_3, self.dtype)
         layer_4_rn = conv_nhwc(s.layer4_rn, layer_4, self.dtype)
 
         path_4 = s.refinenet4(layer_4_rn, None, layer_3_rn.shape[1:3], train)
-        path_4 = self.motion_modules[2](path_4, frames, train)
+        path_4 = motion[2](path_4, frames, train)
         path_3 = s.refinenet3(path_4, layer_3_rn, layer_2_rn.shape[1:3], train)
-        path_3 = self.motion_modules[3](path_3, frames, train)
+        path_3 = motion[3](path_3, frames, train)
         path_2 = s.refinenet2(path_3, layer_2_rn, layer_1_rn.shape[1:3], train)
         path_1 = s.refinenet1(path_2, layer_1_rn, None, train)
 

@@ -71,6 +71,8 @@ def prefix_map_shapes(model: "EndoDAV"):
 
 
 class EndoDAV(nn.Module):
+    model_type = "endodav"
+
     def __init__(self, encoder: str = "vits", r: int = 4,
                  image_shape: tuple[int, int] = (224, 280), lora_type: str = "dvlora",
                  residual_block_indexes: Sequence[int] = (), include_cls_token: bool = True,

@@ -20,7 +20,11 @@ trainer carries down (`train/losses.py:main_phase`), as JAX does:
   temporal-attention kernel (`kernels/temporal_attention.py`).
 
 The two epsilons differ because the two JAX paths differ; each route
-keeps its own.  ``pos_embedding_type="rope"`` adds no pe and rotates the
+keeps its own.  The A/B switches of JAX's `_use_fused_block` (:49) and
+`TemporalTransformerBlock` (:206-208) pick the route the same way:
+``ENDODAV_NO_FUSED`` sends serving to the unfused route too, and
+``ENDODAV_FUSED_TRAIN`` sends the training route to the fused block
+(whose backward is a plain recompute, `kernels/fused_temporal_block.py`).  ``pos_embedding_type="rope"`` adds no pe and rotates the
 channel pairs of q and k instead (`motion.py:92-106, 139-158`); JAX fuses
 APE only (`_use_fused_block`), so a RoPE module takes the unfused route at
 serving too.
@@ -45,6 +49,7 @@ from endodav_tpu_torch.kernels.fused_temporal_block import fused_temporal_block
 from endodav_tpu_torch.kernels.temporal_attention import temporal_attention
 from endodav_tpu_torch.models.cast import dense, group_norm, layer_norm
 from endodav_tpu_torch.models.lora import LoRADense
+from endodav_tpu_torch.utils.envflags import env_on
 
 __all__ = ["TemporalModule", "sinusoidal_time_encoding", "rope_tables", "POS_EMBEDDINGS"]
 
@@ -105,7 +110,9 @@ class TemporalAttention(nn.Module):
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm, train: bool = False) -> torch.Tensor:
         """x + Attn(norm(x) + pe) Wo + bo over x [B*, T, C] (RoPE: no pe, q
         and k rotated)."""
-        if train or self.pos_embedding_type == "rope":
+        fused = ((not train or env_on("ENDODAV_FUSED_TRAIN"))
+                 and self.pos_embedding_type == "ape" and not env_on("ENDODAV_NO_FUSED"))
+        if not fused:
             return x + self._unfused(x, norm)
         t, dt = x.shape[1], self.dtype
         # [C_in, C_out]: a view of the parameter at f32, of its cast at bf16

@@ -42,6 +42,7 @@ __all__ = ["DinoViT", "VIT_CONFIGS"]
 
 VIT_CONFIGS = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6),
+    "vitb": dict(embed_dim=768, depth=12, num_heads=12),  # EndoDAC only
     "vitl": dict(embed_dim=1024, depth=24, num_heads=16),
 }
 

@@ -6,6 +6,8 @@ goes through `kernels/warp_matmul.py`, which launches the CUDA kernels on
 a CUDA tensor and runs their plain versions on a CPU tensor.  (The JAX
 package routes to its Pallas kernels only when an image fits the TPU's
 4 MB VMEM block; that limit is the TPU's and is not copied.)
+``ENDODAV_NO_WARP_MM`` (JAX :48-49) sends both to the kernels' plain
+versions on any device, the A/B leg without the warp kernels.
 
 All images are channels-last ``[B, H, W, C]``; flow fields follow the
 reference's ``(dy, dx)`` channel order; normalized grids use ``(x, y)``
@@ -17,7 +19,9 @@ from __future__ import annotations
 import torch
 
 from endodav_tpu_torch.geometry.losses import abs_jax
-from endodav_tpu_torch.kernels.warp_matmul import grid_sample_mm, splat_mm
+from endodav_tpu_torch.kernels.warp_matmul import (grid_sample_mm, grid_sample_reference,
+                                                   splat_mm, splat_reference)
+from endodav_tpu_torch.utils.envflags import env_on
 
 __all__ = ["grid_sample", "flow_to_grid", "flow_warp", "forward_splat_occupancy",
            "occlusion_mask_backward", "flow_consistency"]
@@ -44,7 +48,11 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, padding_mode: str = "bord
         fx = ((gx + 1.0) * w - 1.0) * 0.5
         fy = ((gy + 1.0) * h - 1.0) * 0.5
     src = img.float() if integer_img else img
-    out = grid_sample_mm(src, fx, fy, padding_mode == "zeros", img_grad, img_tile)
+    if env_on("ENDODAV_NO_WARP_MM"):
+        out = grid_sample_reference(src.float() if img_grad else src.float().detach(),
+                                    fx.float(), fy.float(), padding_mode == "zeros", img_tile)
+    else:
+        out = grid_sample_mm(src, fx, fy, padding_mode == "zeros", img_grad, img_tile)
     return out if integer_img else out.to(img.dtype)
 
 
@@ -78,8 +86,9 @@ def forward_splat_occupancy(coords_xy: torch.Tensor, height: int, width: int) ->
     (x, y) -> occupancy [B, height, width, 1] (`get_corresponding_map`
     conventions)."""
     b = coords_xy.shape[0]
-    occ = splat_mm(coords_xy[..., 0].reshape(b, -1), coords_xy[..., 1].reshape(b, -1),
-                   height, width)
+    splat = splat_reference if env_on("ENDODAV_NO_WARP_MM") else splat_mm
+    x, y = (coords_xy[..., i].reshape(b, -1).float() for i in (0, 1))
+    occ = splat(x, y, height, width)
     return occ.reshape(b, height, width, 1).to(coords_xy.dtype)
 
 

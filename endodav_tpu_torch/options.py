@@ -1,7 +1,8 @@
-"""Flags of the port's eval CLI and trainer.
+"""Flags of the port's eval CLIs and trainer.
 
-The video-depth eval and training subset of `endodav_tpu/options.py`,
-with the same names and defaults so shell scripts carry over, plus
+The depth eval (video and single-frame) and training subset of
+`endodav_tpu/options.py`, with the same names and defaults so shell
+scripts carry over, plus
 ``--seed`` for the random init used when no weights are given.
 ``--no_cuda`` selects the CPU; without it the port runs on CUDA and fails
 when there is no GPU.
@@ -33,12 +34,17 @@ class EndoDAVOptions:
         p.add_argument("--data_path", type=str, default=os.path.join(os.getcwd(), "endovis_data"))
 
         # MODEL
-        p.add_argument("--model_type", type=str, choices=["endodav"], default="endodav")
-        p.add_argument("--encoder", type=str, choices=["vits", "vitl"], default="vits")
+        p.add_argument("--model_type", type=str, choices=["endodav", "endodac", "afsfm"],
+                       default="endodav")
+        p.add_argument("--encoder", type=str, choices=["vits", "vitb", "vitl"], default="vits",
+                       help="vitb serves EndoDAC only; EndoDAC takes vitl as vits (as JAX)")
+        p.add_argument("--pre_norm", action="store_true",
+                       help="EndoDAC: ImageNet-normalize the resized input")
         p.add_argument("--inv_sigmoid", action="store_true")
         p.add_argument("--out_sigmoid", action="store_true")
         p.add_argument("--pretrained_path", type=str, default=None,
-                       help="dir holding video_depth_anything_<enc>.pth")
+                       help="dir holding video_depth_anything_<enc>.pth (endodav) or "
+                            "depth_anything_v2_<enc>.pth (endodac)")
         p.add_argument("--lora_type", type=str, choices=["lora", "dvlora", "none"],
                        default="dvlora")
         p.add_argument("--lora_rank", type=int, default=4)
@@ -87,7 +93,8 @@ class EndoDAVOptions:
         p.add_argument("--num_workers", type=int, default=4)
         p.add_argument("--log_frequency", type=int, default=400)
         p.add_argument("--load_weights_folder", type=str, default=None,
-                       help="folder holding a reference-convention depth_model.pth")
+                       help="folder holding a reference-convention depth_model.pth "
+                            "(afsfm: encoder.pth and depth.pth)")
 
         # EVALUATION
         p.add_argument("--depth_align", type=str, default="scale_shift",
@@ -96,7 +103,16 @@ class EndoDAVOptions:
         p.add_argument("--pred_root", type=str, default=None)
         p.add_argument("--disp2depth", action="store_true")
         p.add_argument("--eval_split", type=str, default="scared_video",
-                       choices=["scared_video"])
+                       choices=["scared_video", "endovis", "hamlyn", "c3vd"])
+        p.add_argument("--disable_median_scaling", action="store_true")
+        p.add_argument("--ext_disp_to_eval", type=str, default=None,
+                       help="evaluate_depth: an .npy of already-scaled disparities")
+        p.add_argument("--save_pred_disps", action="store_true")
+        p.add_argument("--post_process", action="store_true",
+                       help="evaluate_depth: also run each image flipped, and keep the "
+                            "unflipped result (the reference's protocol)")
+        p.add_argument("--post_process_blend", action="store_true",
+                       help="evaluate_depth: blend the flipped pass in (Monodepth v1)")
         p.add_argument("--chunk_windows", type=int, default=2,
                        help="video-depth windows batched per forward pass")
         p.add_argument("--depth_image_shape", nargs=2, type=int, default=[224, 280],

@@ -4,10 +4,13 @@ files and the port's modules.
 The port's parameter names are the reference torch state-dict keys, so a
 reference `depth_model.pth` loads with `load_state_dict`.  The rule tables
 below are numpy copies of `endodav_tpu/utils/checkpoint.py:build_rules`
-for the EndoDAV, ResNet-encoder and decoder components (the last two
-without the PoseCNN and depth-decoder rows, whose models are not
-ported); `from_jax_params` runs them backwards, undoing the
-`_conv_w`/`_convT_w`/`_lin_w` transposes, and carries flax
+for the EndoDAV and EndoDAC (``depth_head.``, with the cls readout
+projections) models, the ResNet encoder and the decoders (without the
+PoseCNN rows, whose model is not ported), plus the rows of what JAX's
+torch loader leaves to flax's init: the BatchNorm of EndoDAC's RCUs
+(``use_bn``), and AF-SfM as its two components nested under
+``encoder.`` and ``depth.``.  `from_jax_params` runs them backwards,
+undoing the `_conv_w`/`_convT_w`/`_lin_w` transposes, and carries flax
 ``batch_stats`` into the BatchNorm buffers.  Msgpack checkpoints are not
 read here: that format needs flax.
 """
@@ -19,7 +22,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["endodav_rules", "resnet_encoder_rules", "decoder_rules", "component_rules",
+__all__ = ["endodav_rules", "endodac_rules", "afsfm_rules", "resnet_encoder_rules",
+           "decoder_rules", "component_rules",
            "COMPONENT_KIND", "from_jax_params", "load_reference_pth", "SKIP_PATTERNS"]
 
 # reference keys with no counterpart in the port (checkpoint.py:_SKIP_PATTERNS)
@@ -103,11 +107,23 @@ def _motion_module_rules(pt, pf):
     return rules
 
 
+def _bn_rules(pt, pf):
+    """A BatchNorm's parameters, and its statistics in the flax collection
+    named first in the path ("batch_stats")."""
+    return [(pt + "weight", pf + ("scale",), None), (pt + "bias", pf + ("bias",), None),
+            (pt + "running_mean", ("batch_stats",) + pf + ("mean",), None),
+            (pt + "running_var", ("batch_stats",) + pf + ("var",), None)]
+
+
 def _dpt_rules(pt, pf):
     rules = []
     for i in range(4):
         rules.append((pt + f"projects.{i}.weight", pf + (f"projects_{i}", "kernel"), _CONV))
         rules.append((pt + f"projects.{i}.bias", pf + (f"projects_{i}", "bias"), None))
+        rules.append((pt + f"readout_projects.{i}.0.weight",
+                      pf + (f"readout_projects_{i}", "kernel"), _LIN))
+        rules.append((pt + f"readout_projects.{i}.0.bias",
+                      pf + (f"readout_projects_{i}", "bias"), None))
     for i, kind in (("0", _CONVT), ("1", _CONVT), ("3", _CONV)):
         rules.append((pt + f"resize_layers.{i}.weight", pf + (f"resize_layers_{i}", "kernel"), kind))
         rules.append((pt + f"resize_layers.{i}.bias", pf + (f"resize_layers_{i}", "bias"), None))
@@ -118,6 +134,8 @@ def _dpt_rules(pt, pf):
             for c in ("conv1", "conv2"):
                 rules.append((rt + f"{unit}.{c}.weight", rf + (unit, c, "kernel"), _CONV))
                 rules.append((rt + f"{unit}.{c}.bias", rf + (unit, c, "bias"), None))
+            for bn in ("bn1", "bn2"):
+                rules += _bn_rules(rt + f"{unit}.{bn}.", rf + (unit, bn))
         rules.append((rt + "out_conv.weight", rf + ("out_conv", "kernel"), _CONV))
         rules.append((rt + "out_conv.bias", rf + ("out_conv", "bias"), None))
     for i in (1, 2, 3, 4):
@@ -159,17 +177,35 @@ def endodav_rules():
     return _vit_rules("pretrained.", ("pretrained",)) + _dpt_rules("head.", ("head",))
 
 
+def endodac_rules():
+    """(torch_key, flax_path, layout) for every EndoDAC parameter and RCU
+    BatchNorm statistic."""
+    return _vit_rules("pretrained.", ("pretrained",)) + _dpt_rules("depth_head.", ("depth_head",))
+
+
+def _nest(rules, pt, pf):
+    """``rules`` of a component placed at torch prefix ``pt`` and flax
+    subtree ``pf`` (after the collection, where the path names one)."""
+    out = []
+    for tk, fk, layout in rules:
+        col = fk[:1] if fk[0] == "batch_stats" else ()
+        out.append((pt + tk, col + pf + fk[len(col):], layout))
+    return out
+
+
+def afsfm_rules():
+    """(torch_key, flax_path, layout) for `AFSfMDepth`: the ResNet encoder
+    under ``encoder.`` and the depth decoder under ``depth.``."""
+    return (_nest(resnet_encoder_rules(), "encoder.", ("encoder",))
+            + _nest(decoder_rules(), "depth.", ("depth",)))
+
+
 def resnet_encoder_rules():
     """(torch_key, flax_path, layout) for a ResNetEncoder; BatchNorm
     statistics carry their flax collection as the path's first element
     ("batch_stats"), parameters carry none."""
     rules = [("encoder.conv1.weight", ("conv1", "kernel"), _CONV)]
-    bn_map = [("weight", "scale", ()), ("bias", "bias", ()),
-              ("running_mean", "mean", ("batch_stats",)), ("running_var", "var", ("batch_stats",))]
-
-    def bn(pt, pf):
-        return [(pt + tn, col + pf + (fn,), None) for tn, fn, col in bn_map]
-
+    bn = _bn_rules
     rules += bn("encoder.bn1.", ("bn1",))
     for stage in range(1, 5):
         for b in range(40):
@@ -183,8 +219,8 @@ def resnet_encoder_rules():
 
 
 def decoder_rules():
-    """(torch_key, flax_path, layout) for the pose, intrinsics, position and
-    transform decoders."""
+    """(torch_key, flax_path, layout) for the pose, intrinsics, position,
+    transform and depth decoders."""
     rules = []
     for n in ("squeeze", "pose_0", "pose_1", "pose_2"):
         rules.append((f"convs.{n}.weight", (n, "kernel"), _CONV))
@@ -203,6 +239,9 @@ def decoder_rules():
                       (f"transform_conv_{s}", "conv", "kernel"), _CONV))
         rules.append((f"convs.transform_conv_{s}.conv.bias",
                       (f"transform_conv_{s}", "conv", "bias"), None))
+        rules.append((f"convs.dispconv_{s}.conv.weight", (f"dispconv_{s}", "conv", "kernel"),
+                      _CONV))
+        rules.append((f"convs.dispconv_{s}.conv.bias", (f"dispconv_{s}", "conv", "bias"), None))
     return rules
 
 
@@ -217,8 +256,8 @@ COMPONENT_KIND = {
 
 
 def component_rules(kind: str):
-    return {"endodav": endodav_rules, "resnet_encoder": resnet_encoder_rules,
-            "decoder": decoder_rules}[kind]()
+    return {"endodav": endodav_rules, "endodac": endodac_rules, "afsfm": afsfm_rules,
+            "resnet_encoder": resnet_encoder_rules, "decoder": decoder_rules}[kind]()
 
 
 def _flatten(tree, prefix=()):
@@ -234,9 +273,10 @@ def _flatten(tree, prefix=()):
 def from_jax_params(params: dict, kind: str = "endodav",
                     batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
     """flax params (nested dict of arrays, ``variables["params"]``) and,
-    for a ResNet encoder, its ``batch_stats`` -> the port's state dict of
-    a component of ``kind`` ("endodav", "resnet_encoder" or "decoder").
-    Raises if a leaf has no rule."""
+    for a model with BatchNorm (a ResNet encoder, AF-SfM, an EndoDAC with
+    ``use_bn``), its ``batch_stats`` -> the port's state dict of a
+    component of ``kind`` ("endodav", "endodac", "afsfm",
+    "resnet_encoder" or "decoder").  Raises if a leaf has no rule."""
     flat = {k: np.asarray(v, dtype=np.float32) for k, v in _flatten(params).items()}
     if batch_stats is not None:
         flat.update({("batch_stats",) + k: np.asarray(v, dtype=np.float32)

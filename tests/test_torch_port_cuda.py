@@ -938,3 +938,85 @@ def test_bf16_serving_options_on_the_card(stitch, transfer, sequential):
         out[name] = tvi.infer_video_depth(fwd, frames, device=device, dedup=dedup, **kw)
     assert out["card"].dtype == out["plain"].dtype and out["card"].shape == (54, 128, 160)
     _bf16_close(out["card"], out["plain"], out["f32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 127, 8 * 321])
+def test_fused_mlp_on_a_cluster_of_three(dtype, rows):
+    """vitb's MLP (768 -> 3072 -> 768: the widest column tile on a cluster
+    of 3 CTAs) at odd row counts and an EndoDAC batch of 8 224x280 frames,
+    against its plain version at TOL of max(1, the largest entry)."""
+    from endodav_tpu_torch.kernels.fused_mlp import fused_mlp, mlp_reference
+
+    dev = _card()
+    c, h = 768, 3072
+    rng = np.random.default_rng(rows)
+    f = lambda *s, sd=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sd).astype(np.float32)).to(dev)
+    x = f(rows, c).to(dtype)
+    fc1, fc2 = f(h, c, sd=c ** -0.5).to(dtype), f(c, h, sd=h ** -0.5).to(dtype)
+    b1, b2 = f(h, sd=0.1), f(c, sd=0.1)
+    want = mlp_reference(x, fc1.t(), b1, fc2.t(), b2).float()
+    before = fused_mlp.launches
+    got = fused_mlp(x, fc1.t(), b1, fc2.t(), b2)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1 and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= TOL[dtype] * max(1.0, want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [6, 12])
+def test_flash_attention_at_endodac_batches(dtype, heads):
+    """An EndoDAC batch of 8 224x280 frames (N=321) at vits (6 heads) and
+    vitb (12 heads) against the plain version, one launch."""
+    dev = _card()
+    b, n, c = 8, 321, heads * 64
+    rng = np.random.default_rng(heads)
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * c)).astype(np.float32)).to(dev)
+    qkv = qkv.to(dtype)
+    want = attention_reference(*(qkv.float()[..., i * c:(i + 1) * c].reshape(b, n, heads, 64)
+                                 for i in range(3)), 0.125).reshape(b, n, c)
+    before = qkv_attention.launches
+    got = qkv_attention(qkv, heads)
+    torch.cuda.synchronize()
+    assert qkv_attention.launches == before + 1
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder,args,env,launches", [
+    ("vits", [], {}, {"flash": 12, "mlp": 0, "rcu": 0}),
+    ("vitb", [], {"ENDODAV_FUSED_RCU": "1"}, {"flash": 12, "mlp": 0, "rcu": 7}),
+    ("vitb", ["--merge_lora"], {"ENDODAV_FUSED_MLP": "1"}, {"flash": 12, "mlp": 12, "rcu": 0}),
+])
+def test_endodac_on_the_card_matches_the_cpu(monkeypatch, encoder, args, env, launches):
+    """EndoDAC through `build_depth_model` (plain LoRA, 224x280) on 4 frames:
+    the card's four disparity scales within 2e-4 of the CPU's, with the
+    kernels launched once a ViT block (flash, fused MLP) or an RCU."""
+    import copy
+
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.kernels.fused_mlp import fused_mlp
+    from endodav_tpu_torch.kernels.fused_rcu import fused_rcu
+    from endodav_tpu_torch.options import EndoDAVOptions
+
+    dev = _card()
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    opt = EndoDAVOptions().parse(["--no_cuda", "--model_type", "endodac", "--lora_type", "lora",
+                                  "--encoder", encoder, *args])
+    cpu_model = engine.build_depth_model(opt, torch.device("cpu"))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    frames = torch.from_numpy(np.random.default_rng(1).uniform(0.0, 1.0, (4, 256, 320, 3))
+                              .astype(np.float32))
+    counts = {"flash": qkv_attention, "mlp": fused_mlp, "rcu": fused_rcu}
+    before = {k: fn.launches for k, fn in counts.items()}
+    with torch.inference_mode():
+        got = gpu_model(frames.to(dev))
+        assert {k: fn.launches - before[k] for k, fn in counts.items()} == launches
+        want = cpu_model(frames)
+    for s in range(4):
+        err = (got[("disp", s)].cpu() - want[("disp", s)]).abs().max().item()
+        assert np.isfinite(err) and err <= 2e-4, (s, err)
