@@ -52,7 +52,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      BatchNorm RCUs, AF-SfM) against the CPU the same way; the JAX
      engine's A/B switches (ENDODAV_NO_FLASH, ENDODAV_LOWRES_OUTCONV,
      ENDODAV_NO_FUSED, ENDODAV_FUSED_TRAIN, ENDODAV_NO_WARP_MM), each with
-     its launches; `cli/test_simple`'s disparity against the CPU;
+     its launches; `cli/test_simple`'s disparity against the CPU; the LoRA
+     family (vits EndoDAV with ssb and --temporal_lora, with Dash in phase
+     1 and in phase 2, with galora and with flora; EndoDAC with ssb; the
+     shipped eval's ssb model in bf16) the same way;
   5. the serving path as the CLI runs it (engine.build_depth_model ->
      depth_window_forward -> evaluate_video_sequences) over synthetic
      SCARED-like 64-frame sequences: vitl 518x644 merged (dedup in taps
@@ -62,8 +65,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the single-frame branch in batches of 8 (EndoDAC vitb as built and
      merged with both opt-in kernels, vits, AF-SfM at 256x320, each also
      timed warm); finite metrics and the launches of every serving kernel
-     per encode batch, window chunk or frame batch checked; then
-     `cli/evaluate_depth` on a synthetic SCARED `endovis` tree;
+     per encode batch, window chunk or frame batch checked; the shipped
+     eval's configuration (vits ssb at 518x644, no residual blocks, no conv
+     head, dedup) as built, merged, and merged with ENDODAV_FUSED_MLP=1,
+     then as built and merged warm in turns: ms/frame of each and their
+     largest |Δdisp| within MODEL_TOL; then `cli/evaluate_depth` on a
+     synthetic SCARED `endovis` tree;
   6. live streaming (`eval/streaming.py:DepthStreamer`) with
      ENDODAV_FUSED_RCU=1 over one 64-frame sequence pushed frame by frame:
      vits 518x644 merged on dedup (prefix mode) and the 224x280 default on
@@ -83,16 +90,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plain versions, with and without ENDODAV_WARP_CP=1: both phase
      losses, the gradients and the updated values of a LoRA B and a
      pose-decoder weight;
-  8. the training step at full width, as `scripts/train_video.sh`
-     configures it (vits, 256x320, batch 1, T=16, dvlora with
-     --warm_up_step 2): `Trainer` built through the option parser on a
+  8. the training step at full width at `scripts/train_video.sh`'s
+     configuration (vits, 256x320, batch 1, T=16) with dvlora in place of
+     its ssb and --warm_up_step 2 (the one check of DV-LoRA's warm-up
+     switch from A/B to U/V): `Trainer` built through the option parser on a
      synthetic SCARED tree written from the seed, 4 steps of
      `train_one_batch` and 2 more with ENDODAV_WARP_CP=1, with finite
      losses, the expected parameter changes and the expected launches of
      every kernel per step, and the share of the depth warps' tiles that
      summed d_img in shared memory (the kernel's count), and the splat
      kernel against its plain version and timed on the step's own
-     coordinates; ms/step and the peak memory;
+     coordinates; ms/step and the peak memory; a small-configuration pair
+     of Dash steps across the phase boundary, card against CPU (phase 2
+     trains lora_index, leaves the singular directions); and 2 steps of
+     `scripts/train_video.sh` exactly (ssb): launches, the ssb vectors
+     trained, ms/step and peak memory;
   9. a JSON line per kernel (rows 1-6 with their bf16 launches and bf16
      error against the plain version) and, last, the device line.
 
@@ -176,6 +188,12 @@ TILE_ROWS, TILE_COLS = 4096, 256
 # vitl at it as the CLI serves it (dedup in taps mode, int8 by default)
 HEADLINE = ["--depth_image_shape", "518", "644", "--merge_lora", "--disable_residual_block"]
 VITL_ARGS = ["--encoder", "vitl", *HEADLINE, "--chunk_windows", "1", "--fast_stitch"]
+# the shipped eval's model flags (scripts/train_video.sh:23,
+# scripts/eval_depth_video1.sh:12: ssb, no residual blocks, no conv head)
+# at the headline's 518x644, the CLI's defaults otherwise
+SSB = ["--lora_type", "ssb"]
+SHIPPED_EVAL = [*SSB, "--disable_residual_block", "--disable_conv_head",
+                "--depth_image_shape", "518", "644"]
 # the single-frame models at the CLI's 224x280: EndoDAC vits and vitb with
 # plain LoRA (the reference's EndoDAC), and AF-SfM (ResNet-18)
 ENDODAC = ["--model_type", "endodac", "--lora_type", "lora"]
@@ -208,6 +226,14 @@ TRAIN_FLAGS = ["--model_type", "endodav", "--encoder", "vits", "--batch_size", "
                "--temporal_lora", "--tune_spatial_interval", "400",
                "--tune_temporal_interval", "100", "--lora_type", "dvlora", "--warm_up_step", "2",
                "--num_workers", "2", "--seed", str(SEED)]
+# scripts/train_video.sh:11-17 exactly (ssb; steps 1-399 train the
+# spatial scale vectors)
+SSB_TRAIN_FLAGS = ["--model_type", "endodav", "--num_workers", "4", "--batch_size", "1",
+                   "--T", str(TRAIN_T), "--encoder", "vits", "--disable_residual_block",
+                   "--disable_conv_head", *SSB, "--warm_up_step", "200000",
+                   "--depth_reproj", "1e-2", "--temporal_lora", "--tune_spatial_interval", "400",
+                   "--tune_temporal_interval", "100", "--seed", str(SEED)]
+SSB_STEPS = 2
 # launches per training step of each kernel, from train/losses.py:
 # grid-sample forward: phase 0 registration, main phase registration +
 #   colour synthesis + depth warps = 4 (no loss reads the flow-consistency
@@ -1172,6 +1198,7 @@ def check_whole_model(device, args=(), image_shape=(224, 280), frames=8, env=Non
     the card against the CPU at bf16 is printed beside BF16_MAX/BF16_MEAN
     (see there)."""
     from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.models.lora import dash_phase2_of
 
     opt = eval_options(["--no_cuda", "--depth_image_shape", *map(str, image_shape), *args])
     expect = expect or {}
@@ -1183,6 +1210,8 @@ def check_whole_model(device, args=(), image_shape=(224, 280), frames=8, env=Non
             cpu_model = cpu_model.clone(pos_embedding_type=pos_embedding_type)
         if rebuild is not None:
             cpu_model = rebuild(cpu_model)
+            rebuilt = (f"lora_type={getattr(cpu_model, 'lora_type', None)}"
+                       + (" dash phase 2" if dash_phase2_of(cpu_model) else ""))
         plain_model = cpu_model.clone(dtype=dtype) if bf16 else cpu_model
         gpu_model = copy.deepcopy(plain_model).to(device)
         rng = np.random.default_rng(SEED)
@@ -1198,7 +1227,7 @@ def check_whole_model(device, args=(), image_shape=(224, 280), frames=8, env=Non
             launches = {names[fn]: fn.launches for fn in expect}
     label = " ".join([*(f"{k}={v}" for k, v in (env or {}).items()), opt.model_type,
                       opt.encoder, *args, pos_embedding_type, str(dtype)[6:]]
-                     + (["rebuilt"] if rebuild is not None else []))
+                     + ([f"rebuilt ({rebuilt})"] if rebuild is not None else []))
     row = {"label": label, "launches": launches}
     for s in range(4):
         card = _disp_err(got[("disp", s)], want[("disp", s)])
@@ -1764,6 +1793,46 @@ def run_sequential_baseline(sequence, device, n_frames=54):
     return row
 
 
+def run_shipped_eval(sequences, device):
+    """The shipped eval's configuration (`SHIPPED_EVAL`: vits ssb at
+    518x644, dedup by default) through the CLI's path (`run_main_path`,
+    launches checked): as built (unmerged, as the scripts serve it), with
+    --merge_lora, and merged with ENDODAV_FUSED_MLP=1 (the fused MLP a ViT
+    block an encode batch).  Then both models warm on the first sequence
+    in turns (as built, merged, merged, as built), `infer_video_depth` with
+    the CLI's host stitch: ms per source frame of each, and the largest
+    |Δdisp| between them within MODEL_TOL."""
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.eval.video_inference import infer_video_depth
+
+    runs = [run_main_path(SHIPPED_EVAL, sequences, device),
+            run_main_path([*SHIPPED_EVAL, "--merge_lora"], sequences, device),
+            run_main_path([*SHIPPED_EVAL, "--merge_lora"], sequences, device,
+                          env={"ENDODAV_FUSED_MLP": "1"})]
+    frames = sequences[0]["colors"]
+    legs = {}
+    for name, extra in (("as built", []), ("merged", ["--merge_lora"])):
+        opt = eval_options([*SHIPPED_EVAL, *extra])
+        legs[name] = (opt, engine.depth_window_forward(
+            own_policy("build_depth_model", engine.build_depth_model, opt, device)))
+    outs, ms = {}, {name: [] for name in legs}
+    for name in ("as built", "merged", "merged", "as built"):
+        opt, fwd = legs[name]
+        t0 = time.perf_counter()
+        outs[name] = infer_video_depth(fwd, frames, tuple(opt.depth_image_shape),
+                                       opt.chunk_windows, device, "host", fwd.dedup)
+        ms[name].append((time.perf_counter() - t0) / len(frames) * 1e3)
+    err = _disp_err(outs["as built"], outs["merged"])
+    row = {"ms_per_frame": ms, "as_built_vs_merged": err,
+           "cli_ms_per_frame": {r["name"]: r["ms_per_frame"] for r in runs}}
+    print(f"[shipped eval] {' '.join(SHIPPED_EVAL)}: warm ms/frame {ms}, (max, mean) |Δdisp| "
+          f"as built vs merged {err} ({card_line()})")
+    require(bool(np.all(np.isfinite(outs["as built"]))) and err[0] <= MODEL_TOL,
+            f"shipped eval: as built vs merged max |Δdisp| {err[0]} above {MODEL_TOL}")
+    del legs
+    return runs, row
+
+
 def write_scared_tree(root, n_frames=24, h=512, w=640, step=(3, 4)):
     """Left frames (PNG, through PIL) of every sequence of the training
     split, made with numpy from the seed: a window drifting by `step`
@@ -1951,6 +2020,129 @@ def run_training(device, root, steps=4, trace_dir=None):
             "splat": agree, "cp_step_ms": cp_times}
 
 
+def check_dash_boundary(device, root):
+    """A pair of small-configuration Dash steps across the phase boundary
+    (`Trainer.dash_warmup` 2: step 1 trains LoRA A/B in phase 1, step 2
+    first SVDs the frozen weights and trains ``lora_index``), on the card
+    (kernels) and on the CPU (plain versions) from the same seed weights
+    and loader batches.  Before step 2 the CPU trainer takes the card's
+    weights, so that both SVD the same bits on the host.  Each step's
+    losses within STEP_LOSS_RTOL, the gradient of a ViT block's LoRA B
+    (step 1) and ``lora_index`` (step 2) within STEP_GRAD_RTOL of its
+    largest entry; after step 2 both in phase 2, ``lora_index`` stepped by
+    Adam, ``weight_u_top``/``weight_vt_top`` as the boundary left them (the
+    CPU's, which no step touches) and never stepped."""
+    from endodav_tpu_torch.train.trainer import Trainer
+
+    args = ["--height", "64", "--width", "96", "--T", "4", "--depth_image_shape", "56", "70",
+            "--lora_type", "dash"]
+    gpu = own_policy("Trainer", Trainer, train_options(root, *args), device)
+    cpu = own_policy("Trainer", Trainer, train_options(root, *args, "--no_cuda"))
+    it = iter(cpu.train_loader)
+    batches = [next(it), next(it)]
+    it.close()
+    name = "pretrained.blocks.5.mlp.fc1"
+    errs = {}
+    for step, batch in enumerate(batches, 1):
+        if step == 2:
+            for k, m in cpu.mods.items():
+                m.load_state_dict(gpu.mods[k].state_dict())
+        for t in (gpu, cpu):
+            t.dash_warmup = 2
+        got = gpu.train_one_batch(batch)
+        with torch.backends.mkldnn.flags(enabled=False):  # oneDNN's reduced-precision convs
+            want = cpu.train_one_batch(batch)
+        require(gpu.dash_phase2 == cpu.dash_phase2 == (step == 2),
+                f"dash step {step}: phase 2 card {gpu.dash_phase2}, CPU {cpu.dash_phase2}")
+        for k in ("loss_0", "loss"):
+            a, b = float(got[k]), float(want[k])
+            errs[f"step {step} {k}"] = abs(a - b) / abs(b)
+            require(np.isfinite(a) and errs[f"step {step} {k}"] <= STEP_LOSS_RTOL,
+                    f"dash step {step} {k}: card {a} vs CPU {b}")
+        leaf = "lora_B" if step == 1 else "lora_index"
+        pg = getattr(gpu.mods["depth_model"].get_submodule(name), leaf)
+        pc = getattr(cpu.mods["depth_model"].get_submodule(name), leaf)
+        require(pg.grad is not None and pc.grad is not None,
+                f"dash step {step}: {name}.{leaf} got no gradient")
+        err = (pg.grad.cpu() - pc.grad).abs().max().item() / pc.grad.abs().max().item()
+        errs[f"step {step} grad {leaf}"] = err
+        require(err <= STEP_GRAD_RTOL, f"dash step {step}: gradient of {leaf} relative err {err}")
+    gl = gpu.mods["depth_model"].get_submodule(name)
+    cl = cpu.mods["depth_model"].get_submodule(name)
+    stepped = int(gpu.opt_main.state_of(gl.lora_index).get("step", 0))
+    kept = (torch.equal(gl.weight_u_top.detach().cpu(), cl.weight_u_top.detach())
+            and torch.equal(gl.weight_vt_top.detach().cpu(), cl.weight_vt_top.detach()))
+    print(f"[dash boundary] card vs CPU, 64x96 T=4 ViT 56x70, steps 1-2 across the boundary: "
+          f"errors {errs}; lora_index Adam steps {stepped}, |lora_index| "
+          f"{gl.lora_index.detach().abs().max().item():.3e}, U/Vt as the boundary left them "
+          f"{kept}")
+    require(stepped == 1 and gl.lora_index.detach().abs().max().item() > 0,
+            "dash: phase 2 did not train lora_index")
+    require(kept and not gpu.opt_main.state_of(gl.weight_u_top)
+            and not gpu.opt_main.state_of(gl.weight_vt_top),
+            "dash: phase 2 moved weight_u_top / weight_vt_top")
+    return errs
+
+
+def run_ssb_training(device, root, steps=SSB_STEPS):
+    """`scripts/train_video.sh`'s training exactly (`SSB_TRAIN_FLAGS`, ssb):
+    `steps` steps of `train_one_batch` on the synthetic tree, each with
+    finite losses, every kernel's launches (`STEP_LAUNCHES`), a frozen ViT
+    weight unchanged, both ssb scale vectors of a ViT block's fc1 stepped
+    by Adam, and a motion module's (the temporal group, off in steps
+    1-399) not; ms of each step and the peak memory of steps 2 on."""
+    from endodav_tpu_torch.options import EndoDAVOptions
+    from endodav_tpu_torch.train.trainer import Trainer
+
+    opt = EndoDAVOptions().parse([*SSB_TRAIN_FLAGS, "--data_path", root])
+    trainer = own_policy("Trainer", Trainer, opt, device)
+    params = dict(trainer.mods["depth_model"].named_parameters())
+    motion_ff = "head.motion_modules.0.temporal_transformer.transformer_blocks.0.ff.net.2"
+    watch = {"frozen": params["pretrained.blocks.0.attn.qkv.weight"],
+             "lora_A": params["pretrained.blocks.5.mlp.fc1.lora_A"],
+             "lora_B": params["pretrained.blocks.5.mlp.fc1.lora_B"],
+             "temporal lora_B": params[f"{motion_ff}.lora_B"]}
+    counters = _kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    times, it = [], iter(trainer.train_loader)
+    for step in range(1, steps + 1):
+        batch = next(it)
+        before = {k: p.detach().clone() for k, p in watch.items()}
+        counts = {k: int(trainer.opt_main.state_of(p).get("step", 0)) for k, p in watch.items()}
+        for fn in counters.values():
+            fn.launches = 0
+        if step == 2:
+            torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        scalars = trainer.train_one_batch(batch)
+        loss, loss_0 = float(scalars["loss"]), float(scalars["loss_0"])  # waits for the step
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        updated = {k: int(trainer.opt_main.state_of(p).get("step", 0)) == counts[k] + 1
+                   for k, p in watch.items()}
+        changed = {k: not torch.equal(before[k], p.detach()) for k, p in watch.items()}
+        print(f"[train ssb] step {step}: loss {loss:.6f} loss_0 {loss_0:.6f} {times[-1]:.1f} ms "
+              f"launches {launches} changed {changed} updated {updated}")
+        require(np.isfinite(loss) and np.isfinite(loss_0), f"ssb step {step}: loss not finite")
+        require(not changed["frozen"] and not updated["frozen"],
+                f"ssb step {step}: a frozen ViT weight changed")
+        require(all(changed[k] and updated[k] for k in ("lora_A", "lora_B")),
+                f"ssb step {step}: the spatial ssb vectors did not train")
+        require(not changed["temporal lora_B"] and not updated["temporal lora_B"],
+                f"ssb step {step}: a motion module's ssb vector trained in a spatial step")
+        require(launches == STEP_LAUNCHES,
+                f"ssb step {step}: launches {launches}, expected {STEP_LAUNCHES}")
+        for k in totals:
+            totals[k] += launches[k]
+    it.close()
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"[train ssb] {' '.join(SSB_TRAIN_FLAGS)}: step ms {[round(t, 1) for t in times]}, "
+          f"peak memory of steps 2-{steps} {peak / 2 ** 30:.2f} GiB ({card_line()})")
+    return {"launches": totals, "step_ms": times, "peak_bytes": peak}
+
+
 # kernel-name fragments -> the categories of the profiles' breakdowns
 PROFILE_CATEGORIES = [
     ("port: grid_sample_fwd", ("grid_sample_fwd_kernel",)),
@@ -2132,6 +2324,28 @@ def main() -> int:
         check_whole_model(device, ENDODAC, frames=4, env={"ENDODAV_FUSED_RCU": "1"},
                           expect={flash: 12, fused_rcu: 0}, rebuild=with_bn),
         check_whole_model(device, AFSFM, frames=4, expect={flash: 0, fused_rcu: 0})))
+    # the LoRA family: ssb with its motion modules adapted too, Dash
+    # in each phase (the engine's seed weights make its index and singular
+    # directions nonzero), galora and flora (no CLI flag: rebuilt), EndoDAC
+    # with ssb; the shipped eval's ssb model in bf16
+    from endodav_tpu_torch.models.endodav import EndoDAV
+    from endodav_tpu_torch.models.lora import set_dash_phase2
+
+    def as_variant(variant):
+        return lambda m: init_random_(EndoDAV(**{**m.config, "lora_type": variant}), SEED).eval()
+
+    dash = ["--lora_type", "dash", "--temporal_lora"]
+    window = {flash: 12, block: 8}
+    lora_err = max(r["max"] for r in (
+        check_whole_model(device, [*SSB, "--temporal_lora"], frames=4, expect=window),
+        check_whole_model(device, dash, frames=4, expect=window),
+        check_whole_model(device, dash, frames=4, expect=window,
+                          rebuild=lambda m: set_dash_phase2(m, True)),
+        check_whole_model(device, frames=4, expect=window, rebuild=as_variant("galora")),
+        check_whole_model(device, frames=4, expect=window, rebuild=as_variant("flora")),
+        check_whole_model(device, ["--model_type", "endodac", *SSB], frames=4,
+                          expect={flash: 12})))
+    whole_bf16.append(check_whole_model(device, SHIPPED_EVAL[:4], expect=window, **bf16))
     switch_rows = check_switches(device)
     test_simple_err = check_test_simple(device)
 
@@ -2152,6 +2366,8 @@ def main() -> int:
                           env={"ENDODAV_FUSED_MLP": "1", "ENDODAV_FUSED_RCU": "1"}),
             run_main_path(ENDODAC, sequences, device),
             run_main_path(AFSFM, half_size(sequences), device)]
+    shipped_runs, shipped = run_shipped_eval(sequences, device)
+    runs += shipped_runs
     evaluate_row = run_evaluate_depth(device)
     for r in runs:
         warm = (f", warm {r['warm_ms_per_frame']:.3f} (inference only)"
@@ -2185,6 +2401,8 @@ def main() -> int:
         check_small_step(device, root, env={"ENDODAV_WARP_CP": "1"})
         trace_dir = args[args.index("--profile-step") + 1] if "--profile-step" in args else None
         train = run_training(device, root, trace_dir=trace_dir)
+        dash_errs = check_dash_boundary(device, root)
+        ssb_train = run_ssb_training(device, root)
 
     def entry(name, source, replaces, launches, max_abs_err, head, shape, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2216,7 +2434,7 @@ def main() -> int:
     depth = next(r for r in warp_rows if r["call"] == "depth warps")
     colour_cp = next(r for r in cp_rows if r["call"] == "colour synthesis")
     consistency_cp = next(r for r in cp_rows if r["call"] == "flow_consistency")
-    trained = train["launches"]
+    trained = {k: n + ssb_train["launches"][k] for k, n in train["launches"].items()}
     wide = sum(r["wide_temporal"] for r in runs + streams + bf16_legs + [baseline])
     wide_bf16 = sum(r["wide_temporal"] for r in bf16_legs)
     warp_src, warp_py = "endodav_tpu_torch/csrc/warp.cu", "endodav_tpu/kernels/warp_matmul.py"
@@ -2307,6 +2525,11 @@ def main() -> int:
     print(f"[summary] whole model max |Δdisp| {model_err:.3e}; training "
           f"{train['ms_per_step']:.1f} ms/step, peak {train['peak_bytes'] / 2 ** 30:.2f} GiB; "
           f"ENDODAV_WARP_CP=1 steps {[round(t, 1) for t in train['cp_step_ms']]} ms")
+    print(f"[summary] LoRA family whole models max |Δdisp| {lora_err:.3e}; shipped ssb eval "
+          f"the CLI's ms/frame {shipped['cli_ms_per_frame']}, warm {shipped['ms_per_frame']}, "
+          f"as built vs merged {shipped['as_built_vs_merged']}; ssb training "
+          f"(scripts/train_video.sh) step ms {[round(t, 1) for t in ssb_train['step_ms']]}, peak "
+          f"{ssb_train['peak_bytes'] / 2 ** 30:.2f} GiB; dash boundary errors {dash_errs} ({card})")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,8 +20,10 @@ explicit leg, never a fallback): ``ENDODAV_NO_FLASH`` (`ops/attention.py`),
 
 The JAX engine's ``ENDODAV_SCAN_TRUNK`` and ``ENDODAV_SPLIT_COMPILE`` only
 change how XLA compiles the same function; the port runs eagerly and has
-neither.  Not ported: msgpack checkpoints, the ``dash`` phase-2 wrapper
-(`_DashPhase2Model`) and ``--serve_mesh``.
+neither.  Every LoRA variant serves; a Dash model built here is in phase 1,
+as JAX serves a Dash ``.pth`` (its phase-2 ``_DashPhase2Model`` reads the
+phase from msgpack metadata; `models/lora.py:set_dash_phase2` switches a
+port model).  Not ported: msgpack checkpoints and ``--serve_mesh``.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from endodav_tpu_torch.geometry.transforms import disp_to_depth
 from endodav_tpu_torch.models.afsfm import AFSfMDepth
 from endodav_tpu_torch.models.endodac import EndoDAC, endodac_lora_alpha
 from endodav_tpu_torch.models.endodav import EndoDAV, endodav_lora_alpha
-from endodav_tpu_torch.models.lora import merge_lora_params
+from endodav_tpu_torch.models.lora import LoRADense, merge_lora_params
 from endodav_tpu_torch.utils.convert import load_reference_pth
 from endodav_tpu_torch.utils.precision import set_f32_policy
 
@@ -81,15 +83,20 @@ def init_random_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Fill every parameter with seeded random values of a sensible scale.
 
     Unlike a training init, no layer starts at zero (LoRA B, the motion
-    modules' proj_out, the ResBottleneck's last norm), so every path of
-    the serving graph moves the output.
+    modules' proj_out, the ResBottleneck's last norm, Dash's index and
+    singular directions), so every path of the serving graph moves the
+    output.  ssb's scale vectors stay near 1, as their init of ones.
     """
+    ssb = {f"{n}.{leaf}" for n, m in model.named_modules()
+           if isinstance(m, LoRADense) and m.variant == "ssb" for leaf in ("lora_A", "lora_B")}
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             noise = torch.randn(p.shape, generator=g)
-            if leaf in ("lora_U", "lora_V"):
+            if name in ssb:
+                value = 1.0 + 0.1 * noise
+            elif leaf in ("lora_U", "lora_V"):
                 value = torch.rand(p.shape, generator=g) * 2 - 1
             elif leaf == "gamma":  # LayerScale
                 value = 0.1 + 0.02 * noise
@@ -154,7 +161,9 @@ def build_depth_model(opt, device: torch.device | None = None) -> torch.nn.Modul
     """The depth model of ``--model_type`` in eval mode on ``device``:
     seeded random weights, replaced by the reference .pth files that
     `_weight_files` names, LoRA merged on ``--merge_lora`` (with the
-    model's own alpha); the f32 policy (`set_f32_policy`) set first."""
+    model's own alpha; galora, whose delta is gated by the input, serves
+    unmerged, as JAX :133-137); the f32 policy (`set_f32_policy`) set
+    first."""
     device = resolve_device(opt) if device is None else device
     set_f32_policy()
     model = init_random_(_make_model(opt, opt.lora_type, opt.temporal_lora), opt.seed)
@@ -167,7 +176,10 @@ def build_depth_model(opt, device: torch.device | None = None) -> torch.nn.Modul
               f"({len(report['missing'])} missing, {len(report['unexpected'])} unexpected)")
     if not files:
         print(f"[eval] no weights given; random init from seed {opt.seed}")
-    if opt.merge_lora and opt.lora_type != "none" and opt.model_type != "afsfm":
+    if opt.merge_lora and opt.lora_type == "galora":
+        print("[eval] --merge_lora ignored: galora's input-gated delta "
+              "cannot be folded into base weights; serving unmerged graph")
+    elif opt.merge_lora and opt.lora_type != "none" and opt.model_type != "afsfm":
         r = opt.lora_rank
         alpha = (endodav_lora_alpha if opt.model_type == "endodav"
                  else endodac_lora_alpha)(opt.lora_type, r)

@@ -14,10 +14,9 @@ trunk and the head at the cast points of `models/cast.py`; parameters
 stay f32 and ``clone(dtype=torch.bfloat16)`` serves the same tensors in
 bf16.  The resize and ``pre_norm`` stay in the input's dtype.
 
-Adapters: none, lora and dvlora (`models/lora.py`).  Not ported: the
-ssb, dash, galora and flora adapters, the JAX fields ``tp_groups`` and
-``scan_trunk`` (tensor parallelism and XLA's compile of the trunk), and
-training an EndoDAC.
+Adapters: every variant of `models/lora.py`.  Not ported: the JAX fields
+``tp_groups`` and ``scan_trunk`` (tensor parallelism and XLA's compile of
+the trunk), and training an EndoDAC.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ import torch.nn as nn
 
 from endodav_tpu_torch.models.dpt import DPTDecoder
 from endodav_tpu_torch.models.endodav import IMAGENET_MEAN, IMAGENET_STD
+from endodav_tpu_torch.models.lora import dash_phase2_of, set_dash_phase2
 from endodav_tpu_torch.models.vit import VIT_CONFIGS, DinoViT
 from endodav_tpu_torch.ops.resize import resize2d
 
@@ -43,7 +43,8 @@ ENDODAC_CONFIGS = {
 
 
 def endodac_lora_alpha(lora_type: str, r: int) -> float | None:
-    """lora keeps alpha 1, dvlora uses alpha r (JAX endodac.py:41-44)."""
+    """lora keeps alpha 1, dvlora uses alpha r (JAX endodac.py:41-44); None,
+    the layers' default 2r, for the others (dash included)."""
     return {"lora": 1.0, "dvlora": float(r)}.get(lora_type)
 
 
@@ -80,10 +81,11 @@ class EndoDAC(nn.Module):
     def clone(self, **changes) -> "EndoDAC":
         """This model with constructor arguments changed (flax's
         ``Module.clone``), over the same parameter tensors and on the same
-        device."""
+        device, in the same Dash phase."""
         device = next(self.parameters()).device
         model = EndoDAC(**{**self.config, **changes})
         model.load_state_dict(self.state_dict(), strict=True, assign=True)
+        set_dash_phase2(model, dash_phase2_of(self))
         return model.to(device).train(self.training)
 
     @property

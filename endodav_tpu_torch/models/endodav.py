@@ -33,6 +33,7 @@ import torch
 import torch.nn as nn
 
 from endodav_tpu_torch.models.dpt import DPTDecoder
+from endodav_tpu_torch.models.lora import dash_phase2_of, set_dash_phase2
 from endodav_tpu_torch.models.vit import VIT_CONFIGS, DinoViT
 from endodav_tpu_torch.ops.resize import resize2d
 
@@ -55,8 +56,9 @@ ENDODAV_CONFIGS = {
 
 
 def endodav_lora_alpha(lora_type: str, r: int) -> float | None:
-    """lora alpha=2r, dvlora alpha=r (endodav.py:107-118 of the reference)."""
-    return {"lora": 2.0 * r, "dvlora": float(r)}.get(lora_type)
+    """lora alpha=2r, dvlora alpha=r, dash alpha=2r (endodav.py:107-118 of
+    the reference); None, the layers' default 2r, for the others."""
+    return {"lora": 2.0 * r, "dvlora": float(r), "dash": 2.0 * r}.get(lora_type)
 
 
 def prefix_map_shapes(model: "EndoDAV"):
@@ -105,12 +107,13 @@ class EndoDAV(nn.Module):
 
     def clone(self, **changes) -> "EndoDAV":
         """This model with constructor arguments changed (flax's
-        ``Module.clone``), over the same parameter tensors and on the same
-        device: ``model.clone(dtype=torch.bfloat16)`` serves these weights
-        in bf16."""
+        ``Module.clone``), over the same parameter tensors, on the same
+        device and in the same Dash phase: ``model.clone(dtype=
+        torch.bfloat16)`` serves these weights in bf16."""
         device = next(self.parameters()).device
         model = EndoDAV(**{**self.config, "int8_serving": self.int8_serving, **changes})
         model.load_state_dict(self.state_dict(), strict=True, assign=True)
+        set_dash_phase2(model, dash_phase2_of(self))
         return model.to(device).train(self.training)
 
     @property

@@ -3,16 +3,19 @@
 Port of `endodav_tpu/models/vit.py`: patch embed, cls token, bicubic
 pos-embed interpolation with the 0.1 offset, pre-norm blocks with fused
 QKV attention (the flash kernel), LayerScale, LoRA-adapted MLPs with
-exact GELU, the optional ResBottleneck branch on patch tokens, and
-intermediate taps with the final LayerNorm applied per tap.  Parameter
-names follow the reference state-dict keys (``blocks.{i}.attn.qkv`` ...).
+exact GELU (or DINOv2's SwiGLU FFN, ``ffn_layer="swiglu"``, which no
+reference configuration uses), the optional ResBottleneck branch on patch
+tokens, and intermediate taps with the final LayerNorm applied per tap.
+Parameter names follow the reference state-dict keys
+(``blocks.{i}.attn.qkv`` ...).
 
 Serving routes, as `models/vit.py:85-116,175-197` of the JAX package:
 ``quant_int8`` (threaded from `EndoDAV.int8_serving` through the forward,
 ``ENDODAV_INT8`` overriding it, `ops/quant.py:resolve_int8`) sends the
 fused qkv projection, the attention out-projection and the merged MLP's
 fc1/fc2 through `int8_dense`; ``ENDODAV_FUSED_MLP`` (default off) sends
-the MLP of the merged graph without int8 through the fused-MLP kernel.
+the MLP of the merged graph without int8 through the fused-MLP kernel
+(an adapted MLP, ssb's included, never takes it: JAX :90-92).
 
 ``dtype`` is the compute dtype of JAX's ``DinoViT.dtype`` (f32 by
 default; the TPU benchmark serves bf16): parameters stay f32 and every
@@ -38,7 +41,7 @@ from endodav_tpu_torch.ops.quant import int8_dense, resolve_int8
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.utils.envflags import env_on
 
-__all__ = ["DinoViT", "VIT_CONFIGS"]
+__all__ = ["DinoViT", "SwiGLUFFN", "VIT_CONFIGS"]
 
 VIT_CONFIGS = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6),
@@ -63,6 +66,23 @@ class Mlp(nn.Module):
             return fused_mlp(x.to(dt).contiguous(), w1, self.fc1.bias.float(), w2,
                              self.fc2.bias.float())
         return self.fc2(F.gelu(self.fc1(x, quant_int8)), quant_int8)
+
+
+class SwiGLUFFN(nn.Module):
+    """DINOv2's SwiGLU FFN (JAX :119-135): ``w12`` one projection to twice
+    the hidden width, silu(x1) * x2, ``w3`` back; the hidden width
+    (int(2 * hidden / 3) + 7) // 8 * 8."""
+
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        d = (int(hidden * 2 / 3) + 7) // 8 * 8
+        self.w12 = nn.Linear(dim, 2 * d)
+        self.w3 = nn.Linear(d, dim)
+
+    def forward(self, x, quant_int8: bool = False):
+        x1, x2 = dense(self.w12, x, self.dtype).chunk(2, dim=-1)
+        return dense(self.w3, F.silu(x1) * x2, self.dtype)
 
 
 class SpatialAttention(nn.Module):
@@ -134,7 +154,8 @@ class ViTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, use_residual_block: bool,
                  include_cls_token: bool, lora_variant: str, lora_rank: int,
-                 lora_alpha: float | None, dtype: torch.dtype = torch.float32):
+                 lora_alpha: float | None, dtype: torch.dtype = torch.float32,
+                 ffn_layer: str = "mlp"):
         super().__init__()
         self.ofs = 1 if include_cls_token else 0
         self.dtype = dtype
@@ -142,7 +163,12 @@ class ViTBlock(nn.Module):
         self.attn = SpatialAttention(dim, num_heads, dtype)
         self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, 4 * dim, lora_variant, lora_rank, lora_alpha, dtype)
+        if ffn_layer == "swiglu":
+            self.mlp = SwiGLUFFN(dim, 4 * dim, dtype)
+        elif ffn_layer == "mlp":
+            self.mlp = Mlp(dim, 4 * dim, lora_variant, lora_rank, lora_alpha, dtype)
+        else:
+            raise ValueError(f"ffn_layer {ffn_layer!r}: mlp or swiglu")
         self.ls2 = LayerScale(dim)
         if use_residual_block:
             self.residual_ = ResBottleneckBlock(dim, dim // 8, dtype)
@@ -180,7 +206,8 @@ class DinoViT(nn.Module):
                  patch_size: int = 14, pos_grid: int = 37,
                  residual_block_indexes: Sequence[int] = (), include_cls_token: bool = True,
                  lora_variant: str = "none", lora_rank: int = 4,
-                 lora_alpha: float | None = None, dtype: torch.dtype = torch.float32):
+                 lora_alpha: float | None = None, dtype: torch.dtype = torch.float32,
+                 ffn_layer: str = "mlp"):
         super().__init__()
         self.embed_dim = embed_dim
         self.patch_size = patch_size
@@ -195,7 +222,7 @@ class DinoViT(nn.Module):
         residual = set(int(i) for i in residual_block_indexes)
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, num_heads, i in residual, include_cls_token,
-                     lora_variant, lora_rank, lora_alpha, dtype)
+                     lora_variant, lora_rank, lora_alpha, dtype, ffn_layer)
             for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 

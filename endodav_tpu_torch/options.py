@@ -45,7 +45,7 @@ class EndoDAVOptions:
         p.add_argument("--pretrained_path", type=str, default=None,
                        help="dir holding video_depth_anything_<enc>.pth (endodav) or "
                             "depth_anything_v2_<enc>.pth (endodac)")
-        p.add_argument("--lora_type", type=str, choices=["lora", "dvlora", "none"],
+        p.add_argument("--lora_type", type=str, choices=["lora", "dvlora", "ssb", "dash", "none"],
                        default="dvlora")
         p.add_argument("--lora_rank", type=int, default=4)
         p.add_argument("--warm_up_step", type=int, default=20000)

@@ -3,10 +3,10 @@
 Port of `endodav_tpu/train/optim.py`: every main-group parameter gets a
 schedule group (`assign_groups`, on the port's parameter names), the step
 counter gives each group a 0/1 gate (`schedule_gates`: the DV-LoRA
-warm-up switch A/B -> U/V, the spatial/temporal LoRA alternation and the
-depth/pose alternation), and `GatedAdam` applies torch-semantics Adam in
-which a gate of 0 leaves the parameter, its moments and its own step
-count untouched.
+warm-up switch A/B -> U/V, Dash's ``lora_index`` in its phase 2, the
+spatial/temporal LoRA alternation and the depth/pose alternation), and
+`GatedAdam` applies torch-semantics Adam in which a gate of 0 leaves the
+parameter, its moments and its own step count untouched.
 
 The gate is applied through autograd: `set_trainable` gives a parameter
 ``requires_grad`` only while its gate is 1, so gated-off parameters get no
@@ -30,6 +30,8 @@ def _depth_group(name: str) -> str:
         return f"{side}_ab"
     if leaf in ("lora_U", "lora_V"):
         return f"{side}_uv"
+    if leaf in ("lora_index", "weight_u_top", "weight_vt_top"):
+        return "dash_index" if leaf == "lora_index" else "frozen"
     if any(p.startswith("residual_") or p.startswith("conv_depth_") for p in parts):
         return "adapt"
     if any("output_conv" in p for p in parts):
@@ -45,9 +47,10 @@ def assign_groups(main_models: dict) -> dict:
             for comp, model in main_models.items()}
 
 
-def schedule_gates(step: int, cfg: dict) -> dict:
+def schedule_gates(step: int, cfg: dict, dash_phase2: bool = False) -> dict:
     """Per-group 0/1 gates of global step ``step``, plus ``tune_temporal``
-    (the loss-side gate of the temporal depth-consistency terms)."""
+    (the loss-side gate of the temporal depth-consistency terms); Dash's
+    ``lora_index`` trains only in its phase 2 (``dash_phase2``)."""
     warm = 0.0 if cfg["lora_type"] == "dvlora" and step > cfg["warm_up_step"] else 1.0
     tdi = cfg["tune_depth_interval"]
     if tdi > 0:
@@ -68,6 +71,7 @@ def schedule_gates(step: int, cfg: dict) -> dict:
         "temporal_uv": (1.0 - warm) * temporal * tune_depth,
         "adapt": spatial * tune_depth,
         "output_conv": tune_depth if cfg["train_output_conv"] else 0.0,
+        "dash_index": (1.0 if dash_phase2 else 0.0) * spatial * tune_depth,
         "pose": tune_pose,
         "frozen": 0.0,
         "tune_temporal": temporal,

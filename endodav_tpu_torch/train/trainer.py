@@ -4,17 +4,18 @@ Port of `endodav_tpu/train/trainer.py`: `build_models` (the eight
 components), a seeded initialisation, the two gated-Adam optimizers (main
 lr ``--learning_rate``, position nets 1e-4, both x0.1 every
 ``--scheduler_step_size`` epochs), the schedule gates, `loss_cfg`, the
-step (`step_fn`, trainer.py:354-474, run eagerly), `train_one_batch` and
+step (`step_fn`, trainer.py:354-474, run eagerly), `train_one_batch`
+(with Dash's phase boundary, `_maybe_dash_phase_boundary`) and
 `run_epoch`.  The step runs phase 0 (the position nets on
 `position_phase_loss`) and then the main phase (depth, pose, transform
 and intrinsics nets on `main_phase`), each with its own backward pass and
 Adam update, as the JAX step does inside one jit.
 
 Everything runs on the CUDA card unless ``--no_cuda`` asks for the CPU;
-finding no card is an error.  Not ported yet: `val`, `run_epoch_eval`,
-`train`, checkpoint save/load, TensorBoard logging, ``--random_train``,
-``--host_preprocess``, the dash phase, ssb, the data-parallel mesh and
-bf16 training.
+finding no card is an error.  Every ``--lora_type`` trains.  Not ported
+yet: `val`, `run_epoch_eval`, `train`, checkpoint save/load, TensorBoard
+logging, ``--random_train``, ``--host_preprocess``, the data-parallel mesh
+and bf16 training.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from endodav_tpu_torch.eval.engine import SPLITS_DIR, resolve_device
 from endodav_tpu_torch.models.decoders import (IntrinsicsHead, PoseDecoder, PositionDecoder,
                                                TransformDecoder)
 from endodav_tpu_torch.models.endodav import EndoDAV
+from endodav_tpu_torch.models.lora import LoRADense, dash_svd_update, set_dash_phase2
 from endodav_tpu_torch.models.resnet import ResNetEncoder, commit_batch_stats, resnet_num_ch_enc
 from endodav_tpu_torch.ops.jitter import device_pyramid
 from endodav_tpu_torch.train import losses as L
@@ -76,15 +78,26 @@ def build_models(opt) -> dict:
 def init_train_(mods: dict, seed: int) -> dict:
     """Seeded initialisation with the distributions of the JAX package's
     flax initialisers: lecun-normal weights, zero biases, unit norms,
-    zero LoRA B, kaiming-uniform LoRA A, U/V uniform in [-1, 1], zero motion
-    proj_out (an identity motion module), N(0, 1e-5) flow convs, LayerScale
-    1e-5, cls/pos tokens N(0, 0.02)."""
+    zero LoRA B, kaiming-uniform LoRA A, U/V uniform in [-1, 1], ssb's
+    vectors at one, flora's A and B N(0, 0.02) and E zero, Dash's index and
+    singular directions zero, zero motion proj_out (an identity motion
+    module), N(0, 1e-5) flow convs, LayerScale 1e-5, cls/pos tokens
+    N(0, 0.02)."""
     g = torch.Generator().manual_seed(seed)
     for comp in sorted(mods):
+        variant_of = {n: m.variant for n, m in mods[comp].named_modules()
+                      if isinstance(m, LoRADense)}
         for name, p in mods[comp].named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+            owner, _, leaf = name.rpartition(".")
+            variant = variant_of.get(owner)
             noise = torch.randn(p.shape, generator=g)
-            if leaf == "lora_A":
+            if variant == "ssb" and leaf in ("lora_A", "lora_B"):
+                value = torch.ones(p.shape)
+            elif variant == "flora" and leaf in ("lora_A", "lora_B"):
+                value = 0.02 * noise
+            elif leaf in ("lora_E", "lora_index", "weight_u_top", "weight_vt_top"):
+                value = torch.zeros(p.shape)
+            elif leaf == "lora_A":
                 value = (torch.rand(p.shape, generator=g) * 2 - 1) * p.shape[1] ** -0.5
             elif leaf in ("lora_U", "lora_V"):
                 value = torch.rand(p.shape, generator=g) * 2 - 1
@@ -163,9 +176,23 @@ class Trainer:
             "position_smoothness": opt.position_smoothness, "depth_reproj": opt.depth_reproj,
             "depth_flow": opt.depth_flow, "train": True,
         }
+        self.dash_phase2 = False
+        self.dash_warmup = 100  # DashLinear's FLAG warm-up (mylora/layers.py:527)
         self._setup_data()
         self.step = 1
         self.epoch = 0
+
+    def _maybe_dash_phase_boundary(self):
+        """Dash's phase boundary (JAX trainer.py:253-277): once ``step``
+        reaches ``dash_warmup``, SVD the frozen weights on the host
+        (`dash_svd_update`) and switch the depth model to phase 2, in which
+        ``lora_index`` trains."""
+        if self.opt.lora_type != "dash" or self.dash_phase2 or self.step < self.dash_warmup:
+            return
+        print(f"[trainer] dash phase boundary at step {self.step}: running SVD update")
+        dash_svd_update(self.mods["depth_model"])
+        set_dash_phase2(self.mods["depth_model"], True)
+        self.dash_phase2 = True
 
     def _setup_data(self):
         opt = self.opt
@@ -226,7 +253,7 @@ class Trainer:
         """One training step on a device batch (trainer.py:354-474)."""
         cfg = self.loss_cfg
         scales, hw = cfg["scales"], (cfg["height"], cfg["width"])
-        gates = O.schedule_gates(self.step, self.sched_cfg)
+        gates = O.schedule_gates(self.step, self.sched_cfg, self.dash_phase2)
 
         # phase 0: the position nets (trainer.py:403-426)
         O.set_trainable(self.main_mods, None)
@@ -257,6 +284,7 @@ class Trainer:
         return scalars
 
     def train_one_batch(self, batch: dict) -> dict:
+        self._maybe_dash_phase_boundary()
         lr, lr0 = self.current_lrs()
         scalars = self.step_fn(self.device_batch(batch), lr, lr0)
         self.step += 1

@@ -65,7 +65,10 @@ def _vit_block_rules(pt, pf):
 
 def _lora_dense_rules(pt, pf):
     rules = [(pt + "weight", pf + ("kernel",), _LIN), (pt + "bias", pf + ("bias",), None)]
-    for nm in ("lora_A", "lora_B", "lora_U", "lora_V"):
+    # every variant's adapter leaves keep their layout (JAX checkpoint.py:161,
+    # and flora's lora_E)
+    for nm in ("lora_A", "lora_B", "lora_U", "lora_V", "lora_E", "lora_index", "weight_u_top",
+               "weight_vt_top"):
         rules.append((pt + nm, pf + (nm,), None))
     return rules
 
@@ -168,6 +171,9 @@ def _vit_rules(pt, pf, depth=40):
         rules.extend(_vit_block_rules(bt, bf))
         rules.extend(_lora_dense_rules(bt + "mlp.fc1.", bf + ("mlp", "fc1")))
         rules.extend(_lora_dense_rules(bt + "mlp.fc2.", bf + ("mlp", "fc2")))
+        for nm in ("w12", "w3"):  # the SwiGLU FFN (ffn_layer="swiglu")
+            rules.append((bt + f"mlp.{nm}.weight", bf + ("mlp", nm, "kernel"), _LIN))
+            rules.append((bt + f"mlp.{nm}.bias", bf + ("mlp", nm, "bias"), None))
         rules.extend(_res_bottleneck_rules(bt + "residual_.", bf + ("residual_",)))
     return rules
 

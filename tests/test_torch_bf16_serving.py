@@ -169,7 +169,7 @@ def test_int8_dense_bf16_matches_jax():
 # ---------------------------------------------------------------- modules
 
 
-@pytest.mark.parametrize("variant", ["none", "lora", "dvlora"])
+@pytest.mark.parametrize("variant", ["none", "lora", "dvlora", "ssb", "dash", "galora", "flora"])
 def test_lora_dense_bf16_matches_jax(variant):
     """The adapter factors formed in f32 and cast (JAX models/lora.py:
     126-141); within 1e-2 of the largest |output|, 3e-3 in the mean
@@ -189,7 +189,8 @@ def test_lora_dense_bf16_matches_jax(variant):
         tm.load_state_dict(sd, strict=True)
         with torch.inference_mode():
             got = tm(torch.from_numpy(x).to(tdt))
-        # "none" returns the compute dtype, the adapted variants x's dtype
+        # "none" and "ssb" return the compute dtype, the other variants x's
+        # dtype
         _close(got, want, 1e-2, 3e-3)
 
 

@@ -38,38 +38,61 @@ def _state_dict(params, wrap, strip):
     return {k[len(strip):]: v for k, v in sd.items()}
 
 
-@pytest.mark.parametrize("variant", ["none", "lora", "dvlora"])
+# "dash2": dash in its phase 2 (the lora_index term on the top singular
+# directions); phase 1 is "dash"
+DENSE_CASES = ["none", "lora", "dvlora", "ssb", "dash", "dash2", "galora", "flora"]
+
+
+def _variant(case):
+    return ("dash", True) if case == "dash2" else (case, False)
+
+
+@pytest.mark.parametrize("variant", DENSE_CASES)
 def test_lora_dense_matches_jax(variant):
     from endodav_tpu.models.lora import LoRADense as JLoRADense
+    from endodav_tpu_torch.models.lora import set_dash_phase2
 
+    variant, phase2 = _variant(variant)
     rng = np.random.default_rng(1)
     x = rng.standard_normal((3, 5, 12)).astype(np.float32)
     jm = JLoRADense(7, r=4, lora_alpha=4.0, variant=variant)
     p = _randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 2)
-    want = np.asarray(jm.apply({"params": p}, jnp.asarray(x)))
+    want = np.asarray(jm.apply({"params": p}, jnp.asarray(x), phase2))
     tm = LoRADense(12, 7, r=4, lora_alpha=4.0, variant=variant)
     sd = {k: torch.from_numpy(np.asarray(v)) for k, v in p.items() if k != "kernel"}
     sd["weight"] = torch.from_numpy(np.asarray(p["kernel"]).T.copy())
     tm.load_state_dict(sd, strict=True)
+    set_dash_phase2(tm, phase2)
     got = tm(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-@pytest.mark.parametrize("variant", ["lora", "dvlora"])
+@pytest.mark.parametrize("variant", [c for c in DENSE_CASES if c != "none"])
 def test_merge_lora_params_matches_jax_and_forward(variant):
+    """The merge against JAX's and the merged layer against the adapted
+    one; galora's input-gated delta raises in both packages."""
     from endodav_tpu.models.lora import merge_lora_params as jmerge
+    from endodav_tpu_torch.models.lora import set_dash_phase2
 
+    variant, phase2 = _variant(variant)
     torch.manual_seed(0)
     tm = LoRADense(12, 7, r=4, lora_alpha=4.0, variant=variant)
     with torch.no_grad():
         for prm in tm.parameters():
             prm.normal_(0, 0.3)
+    set_dash_phase2(tm, phase2)
     sd = {f"fc.{k}": v for k, v in tm.state_dict().items()}
-    merged = merge_lora_params(sd, variant, 4, 4.0)
-    assert set(merged) == {"fc.weight", "fc.bias"}
     jtree = {"fc": {("kernel" if k == "weight" else k):
                     (v.numpy().T if k == "weight" else v.numpy()) for k, v in tm.state_dict().items()}}
-    want = np.asarray(jmerge(jtree, variant, 4, 4.0)["fc"]["kernel"]).T
+    if variant == "galora":
+        with pytest.raises(ValueError, match="galora"):
+            merge_lora_params(sd, variant, 4, 4.0)
+        with pytest.raises(ValueError, match="galora"):
+            jmerge(jtree, variant, 4, 4.0)
+        return
+    merged = merge_lora_params(sd, variant, 4, 4.0, dash_phase2=phase2)
+    assert set(merged) == {"fc.weight", "fc.bias"}
+    want = np.asarray(jmerge(jtree, variant, 4, 4.0, dash_phase2=phase2)["fc"]["kernel"]).T
     np.testing.assert_allclose(merged["fc.weight"].numpy(), want, atol=1e-6)
     plain = LoRADense(12, 7, variant="none")
     plain.load_state_dict({k[3:]: v for k, v in merged.items()}, strict=True)

@@ -260,15 +260,24 @@ def _flax_tree_of(model, rules):
     return tree
 
 
-@pytest.mark.parametrize("conv_head", [True, False])
-def test_assign_groups_equal_jax_groups_through_the_rule_tables(conv_head):
+# the ids of the dvlora cases are the conv_head flag's
+GROUP_CASES = [pytest.param(True, "dvlora", id="True"), pytest.param(False, "dvlora", id="False"),
+               pytest.param(True, "ssb", id="ssb"), pytest.param(False, "dash", id="dash"),
+               pytest.param(True, "flora", id="flora")]
+VARIANT_GROUPS = {"dvlora": {"spatial_ab", "spatial_uv", "temporal_ab", "temporal_uv"},
+                  "ssb": {"spatial_ab", "temporal_ab"}, "flora": {"spatial_ab", "temporal_ab"},
+                  "dash": {"spatial_ab", "temporal_ab", "dash_index"}}
+
+
+@pytest.mark.parametrize("conv_head,lora_type", GROUP_CASES)
+def test_assign_groups_equal_jax_groups_through_the_rule_tables(conv_head, lora_type):
     from endodav_tpu.train import optim as JO
     from endodav_tpu_torch.models.decoders import PoseDecoder
     from endodav_tpu_torch.models.endodav import EndoDAV
     from endodav_tpu_torch.train import optim as TO
     from endodav_tpu_torch.utils.convert import decoder_rules, endodav_rules
 
-    depth = EndoDAV("vits", lora_type="dvlora", residual_block_indexes=(2, 5),
+    depth = EndoDAV("vits", lora_type=lora_type, residual_block_indexes=(2, 5),
                     temporal_lora=True, conv_head=conv_head)
     pose = PoseDecoder(512, 2)
     got = TO.assign_groups({"depth_model": depth, "pose": pose})
@@ -284,8 +293,7 @@ def test_assign_groups_equal_jax_groups_through_the_rule_tables(conv_head):
         want[comp] = dict(zip(n, g))
     assert len(names) == len(labels)
     assert got == want
-    assert {"spatial_ab", "spatial_uv", "temporal_ab", "temporal_uv", "adapt",
-            "frozen"} <= set(got["depth_model"].values())
+    assert VARIANT_GROUPS[lora_type] | {"adapt", "frozen"} <= set(got["depth_model"].values())
 
 
 @pytest.mark.parametrize("cfg", [
@@ -296,15 +304,21 @@ def test_assign_groups_equal_jax_groups_through_the_rule_tables(conv_head):
     dict(lora_type="lora", warm_up_step=5, tune_depth_interval=-1, temporal_lora=False,
          tune_spatial_interval=300, tune_temporal_interval=100, train_output_conv=False,
          legacy_frozen_groups=("spatial_uv", "temporal_ab", "temporal_uv")),
+    dict(lora_type="dash", warm_up_step=5, tune_depth_interval=2, temporal_lora=True,
+         tune_spatial_interval=3, tune_temporal_interval=2, train_output_conv=False),
+    dict(lora_type="ssb", warm_up_step=5, tune_depth_interval=-1, temporal_lora=True,
+         tune_spatial_interval=400, tune_temporal_interval=100, train_output_conv=False),
 ])
 def test_schedule_gates_match_jax(cfg):
+    """Every gate, Dash's ``dash_index`` included, in both Dash phases."""
     from endodav_tpu.train import optim as JO
     from endodav_tpu_torch.train import optim as TO
 
-    for step in range(0, 30):
-        want = {k: float(v) for k, v in JO.schedule_gates(jnp.asarray(step), cfg).items()}
-        want.pop("dash_index")
-        assert TO.schedule_gates(step, cfg) == want, step
+    for phase2 in (False, True):
+        for step in range(0, 30):
+            want = {k: float(v)
+                    for k, v in JO.schedule_gates(jnp.asarray(step), cfg, phase2).items()}
+            assert TO.schedule_gates(step, cfg, phase2) == want, (step, phase2)
 
 
 def test_gated_adam_matches_jax_with_a_zero_gate():

@@ -6,10 +6,11 @@ port by `utils/convert.py:from_jax_params`.
 * phase 0: `position_phase_loss`, the gradients of every position-net
   parameter and the committed BatchNorm statistics;
 * main phase: every term of `main_phase`'s loss dict;
-* one whole step (`slow`: the JAX step's jit takes about 200 s to compile
-  on one CPU core): both losses and the updates (new value minus the
-  initial one) of the LoRA B, the conv_depth head, the pose decoder and
-  the position decoder, and a frozen ViT weight, which must not move.
+* one whole step with dvlora and one with ssb (`slow`: the JAX step's jit
+  takes about 100-200 s to compile on one CPU core): both losses and the
+  updates (new value minus the initial one) of the LoRA B (ssb: both scale
+  vectors), the conv_depth head, the pose decoder and the position
+  decoder, and a frozen ViT weight, which must not move.
 
 At the JAX init the flows are ~1e-5 px and the pose ~0, so every warp
 samples at integer pixel positions, where the bilinear gradient jumps
@@ -112,12 +113,12 @@ def _with_motion(variables, seed=21):
     return v
 
 
-def _port_trainer(variables):
+def _port_trainer(variables, lora_type="dvlora"):
     """The port's Trainer on the CPU with the JAX variables loaded."""
     from endodav_tpu_torch.options import EndoDAVOptions
     from endodav_tpu_torch.train.trainer import Trainer
 
-    t = Trainer(EndoDAVOptions().parse(FLAGS))
+    t = Trainer(EndoDAVOptions().parse([*FLAGS, "--lora_type", lora_type]))
     for comp, kind in COMPONENT_KIND.items():
         v = jax.tree_util.tree_map(np.asarray, variables[comp])
         t.mods[comp].load_state_dict(
@@ -239,17 +240,24 @@ def test_main_phase_losses_match_jax(setup):
                 bn.pending = None
 
 
-@pytest.mark.slow
-def test_one_step_matches_jax(exact_cpu_convs, tmp_path):
+def _one_step_against_jax(tmp_path, lora_type, adapter_leaves, new_value_ulp=False):
+    """One whole step of the JAX trainer and of the port's on the same
+    variables and batch, both built with ``lora_type``: both losses, and
+    the updates of the first block's fc1 adapter leaves ``adapter_leaves``,
+    the conv_depth head, the pose decoder and the position decoder, and a
+    frozen ViT weight, which must not move.  ``new_value_ulp`` also allows
+    each entry one rounding of its new value: ssb's vectors sit near 1,
+    where f32 resolves their ~1e-5 updates only to 1.2e-7."""
     from flax.traverse_util import flatten_dict
 
     from endodav_tpu.train.trainer import Trainer as JTrainer
 
     jopt = _jax_opt()
     jopt.log_dir = str(tmp_path)
+    jopt.lora_type = lora_type
     jt = JTrainer(jopt)
     jt.variables = _with_motion(jt.variables)
-    port = _port_trainer(jt.variables)
+    port = _port_trainer(jt.variables, lora_type)
     init = jax.tree_util.tree_map(np.array, jt.variables)  # copies: the step may donate
     batch = make_batch()
     jsc = jt.train_one_batch(batch)
@@ -263,8 +271,9 @@ def test_one_step_matches_jax(exact_cpu_convs, tmp_path):
     to_jax = {"conv": lambda t: t.permute(2, 3, 1, 0), "linear": lambda t: t.T,
               "plain": lambda t: t}
     checks = [  # (port parameter, its optimizer, layout, JAX component and path)
-        (tdm["pretrained.blocks.0.mlp.fc1.lora_B"], port.opt_main, "plain",
-         ("depth_model", "pretrained", "blocks_0", "mlp", "fc1", "lora_B")),
+        *((tdm[f"pretrained.blocks.0.mlp.fc1.{leaf}"], port.opt_main, "plain",
+           ("depth_model", "pretrained", "blocks_0", "mlp", "fc1", leaf))
+          for leaf in adapter_leaves),
         (tdm["head.conv_depth_1.head.0.weight"], port.opt_main, "conv",
          ("depth_model", "head", "conv_depth_1", "conv0", "kernel")),
         (tdm["pretrained.blocks.0.mlp.fc1.weight"], port.opt_main, "linear",
@@ -292,4 +301,21 @@ def test_one_step_matches_jax(exact_cpu_convs, tmp_path):
         m = to_jax[layout](state["exp_avg"].abs()).numpy()
         sure = m > 0.1 * m.max()
         assert want[sure].any(), path  # JAX's step moved it
-        _assert_close_rel(got[sure], want[sure], GRAD_RTOL)
+        if new_value_ulp:
+            slack = np.spacing(np.abs(before[sure]).astype(np.float32))
+            bound = GRAD_RTOL * np.abs(want[sure]).max() + slack
+            assert np.all(np.abs(got[sure] - want[sure]) <= bound), path
+        else:
+            _assert_close_rel(got[sure], want[sure], GRAD_RTOL)
+
+
+@pytest.mark.slow
+def test_one_step_matches_jax(exact_cpu_convs, tmp_path):
+    _one_step_against_jax(tmp_path, "dvlora", ("lora_B",))
+
+
+@pytest.mark.slow
+def test_one_ssb_step_matches_jax(exact_cpu_convs, tmp_path):
+    """The step with ssb, the adapter of `scripts/train_video.sh`: both of
+    fc1's scale vectors train (as slow as the dvlora step: JAX's jit)."""
+    _one_step_against_jax(tmp_path, "ssb", ("lora_A", "lora_B"), new_value_ulp=True)
