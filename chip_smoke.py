@@ -104,7 +104,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      of Dash steps across the phase boundary, card against CPU (phase 2
      trains lora_index, leaves the singular directions); and 2 steps of
      `scripts/train_video.sh` exactly (ssb): launches, the ssb vectors
-     trained, ms/step and peak memory;
+     trained, ms/step and peak memory; then both commands of
+     `scripts/train_video.sh` through the CLIs (`run_training_script`) on
+     a synthetic tree with ground truth in a split directory of its own:
+     one epoch of 7 steps with `val` every 2 batches, the epoch eval
+     (depth, TAE/TAS on the card, pose) and the checkpoints in the JAX
+     package's msgpack layout, every step's losses finite and every
+     kernel's launches checked; a fresh `Trainer` loading ``weights_last``
+     bit for bit; `cli/evaluate_depth_video_pose` on it with finite
+     metrics and its launches; the batched TAE/TAS on the card against the
+     CPU; ms/step, val, eval, checkpoint and CLI seconds and peak memory;
   9. a JSON line per kernel (rows 1-6 with their bf16 launches and bf16
      error against the plain version) and, last, the device line.
 
@@ -218,6 +227,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # block): three TF32 passes at the 495 TFLOP/s TF32 rate
 TF32X3_FLOPS = 495e12 / 3
 TRAIN_HW, TRAIN_T, SPLIT = (256, 320), 16, "splits/scared_video/train_files.txt"
+VAL_SPLIT = "splits/scared_video/val_files.txt"
 # scripts/train_video.sh with the trainer's default --lora_type dvlora and
 # --warm_up_step 2, so that steps 1-2 train the LoRA A/B and steps 3-4 the
 # dvlora vectors
@@ -226,13 +236,16 @@ TRAIN_FLAGS = ["--model_type", "endodav", "--encoder", "vits", "--batch_size", "
                "--temporal_lora", "--tune_spatial_interval", "400",
                "--tune_temporal_interval", "100", "--lora_type", "dvlora", "--warm_up_step", "2",
                "--num_workers", "2", "--seed", str(SEED)]
-# scripts/train_video.sh:11-17 exactly (ssb; steps 1-399 train the
-# spatial scale vectors)
-SSB_TRAIN_FLAGS = ["--model_type", "endodav", "--num_workers", "4", "--batch_size", "1",
-                   "--T", str(TRAIN_T), "--encoder", "vits", "--disable_residual_block",
-                   "--disable_conv_head", *SSB, "--warm_up_step", "200000",
-                   "--depth_reproj", "1e-2", "--temporal_lora", "--tune_spatial_interval", "400",
-                   "--tune_temporal_interval", "100", "--seed", str(SEED)]
+# scripts/train_video.sh:11-17 and :19-22, the training and the eval command's
+# flags exactly (ssb; steps 1-399 train the spatial scale vectors)
+SCRIPT_TRAIN_FLAGS = ["--model_type", "endodav", "--num_workers", "4", "--batch_size", "1",
+                      "--T", str(TRAIN_T), "--encoder", "vits", "--disable_residual_block",
+                      "--disable_conv_head", *SSB, "--warm_up_step", "200000",
+                      "--depth_reproj", "1e-2", "--temporal_lora",
+                      "--tune_spatial_interval", "400", "--tune_temporal_interval", "100"]
+SCRIPT_EVAL_FLAGS = ["--model_type", "endodav", "--eval_split", "scared_video", "--eval_mono",
+                     "--disable_residual_block", "--disable_conv_head", *SSB]
+SSB_TRAIN_FLAGS = [*SCRIPT_TRAIN_FLAGS, "--seed", str(SEED)]
 SSB_STEPS = 2
 # launches per training step of each kernel, from train/losses.py:
 # grid-sample forward: phase 0 registration, main phase registration +
@@ -1835,9 +1848,10 @@ def run_shipped_eval(sequences, device):
 
 def write_scared_tree(root, n_frames=24, h=512, w=640, step=(3, 4)):
     """Left frames (PNG, through PIL) of every sequence of the training
-    split, made with numpy from the seed: a window drifting by `step`
-    pixels a frame over a smooth texture with fine detail.  24 frames a
-    sequence give the 23 sequences 33 clips of T=16."""
+    and val splits, made with numpy from the seed: a window drifting by
+    `step` pixels a frame over a smooth texture with fine detail.  24
+    frames a sequence give the 23 training sequences 33 clips of T=16 (the
+    `Trainer` builds its val loader over the val sequences)."""
     from PIL import Image
 
     from endodav_tpu_torch.data.readers import readlines
@@ -1846,7 +1860,7 @@ def write_scared_tree(root, n_frames=24, h=512, w=640, step=(3, 4)):
     bh, bw = h + step[0] * n_frames, w + step[1] * n_frames
     yy, xx = np.meshgrid(np.linspace(0, bh / h, bh), np.linspace(0, bw / w, bw), indexing="ij")
     fine = rng.uniform(-12, 12, (bh, bw, 3))
-    for name in readlines(SPLIT):
+    for name in readlines(SPLIT) + readlines(VAL_SPLIT):
         left = os.path.join(root, name, "data", "left")
         os.makedirs(left, exist_ok=True)
         phase = rng.uniform(0, 2 * np.pi, 3)
@@ -2143,6 +2157,221 @@ def run_ssb_training(device, root, steps=SSB_STEPS):
     return {"launches": totals, "step_ms": times, "peak_bytes": peak}
 
 
+# the training script's tree: two sequences with ground truth (the val and
+# test splits) and two without, 40 frames of 512x640 each; the training
+# split of all four gives 7 clips of T=16
+SCRIPT_SEQUENCES = (("train/dataset1/keyframe1", False), ("train/dataset2/keyframe1", False),
+                    ("train/dataset5/keyframe1", True), ("train/dataset3/keyframe3", True))
+SCRIPT_FRAMES = 40
+# what one `Trainer.val` launches: the registration warp and the occlusion
+# splat of the flow nets' forward, no backward
+VAL_LAUNCHES = {"grid_sample_fwd": 1, "splat": 1}
+SCRIPT_TAE_TOL = 1e-5  # the card's batched TAE/TAS against the CPU's, same depths
+
+
+def write_script_tree(root, n_frames=SCRIPT_FRAMES, h=512, w=640):
+    """A synthetic SCARED tree with ground truth, made with numpy from the
+    seed: PNG left frames (a window drifting over a smooth texture), for
+    the sequences marked so depths as 3-channel float TIFFs
+    (``scene_points``) and camera poses (``frame_data`` JSON), and a split
+    directory of its own (train: every sequence; val and test: those with
+    ground truth).  Returns (data root, split directory)."""
+    import cv2
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 1)
+    bh, bw = h + 3 * n_frames, w + 4 * n_frames
+    yy, xx = np.meshgrid(np.linspace(0, bh / h, bh), np.linspace(0, bw / w, bw), indexing="ij")
+    dy, dx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    data = os.path.join(root, "data")
+    for name, gt in SCRIPT_SEQUENCES:
+        base = os.path.join(data, name, "data")
+        for sub in ("left", "scene_points", "frame_data") if gt else ("left",):
+            os.makedirs(os.path.join(base, sub))
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        tex = np.stack([128 + 70 * np.sin(9 * xx + 5 * yy + phase[c])
+                        + 30 * np.cos(23 * yy - 17 * xx) for c in range(3)], -1)
+        tex = np.clip(tex + rng.uniform(-12, 12, tex.shape), 0, 255).astype(np.uint8)
+        for i in range(n_frames):
+            Image.fromarray(tex[3 * i:3 * i + h, 4 * i:4 * i + w]).save(
+                os.path.join(base, "left", f"{i:010d}.png"), compress_level=0)
+            if gt:
+                d = (40 + 30 * dy + 10 * np.cos(3 * dx + 0.03 * i)).astype(np.float32)
+                cv2.imwrite(os.path.join(base, "scene_points", f"scene_points{i:06d}.tiff"),
+                            np.stack([d, d, d], -1))
+                pose = np.eye(4)
+                pose[0, 3], pose[1, 3] = 0.4 * i, 0.3 * i
+                with open(os.path.join(base, "frame_data", f"frame_data{i:06d}.json"), "w") as f:
+                    json.dump({"camera-pose": pose.tolist()}, f)
+    splits = os.path.join(root, "splits")
+    os.makedirs(os.path.join(splits, "scared_video"))
+    with_gt = [n for n, gt in SCRIPT_SEQUENCES if gt]
+    for split, names in (("train", [n for n, _ in SCRIPT_SEQUENCES]), ("val", with_gt),
+                         ("test", with_gt)):
+        with open(os.path.join(splits, "scared_video", f"{split}_files.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return data, splits
+
+
+def run_training_script(device, root):
+    """`scripts/train_video.sh`'s two commands on the card: the training
+    CLI's `main` with the script's flags exactly (`SCRIPT_TRAIN_FLAGS`) and
+    one epoch, a log (scalars, panels and `val`) every 2 batches, then
+    `cli/evaluate_depth_video_pose.evaluate` on ``weights_last`` with the
+    eval command's flags.  Checks: every step's losses finite; each
+    kernel's launches over the training run STEP_LAUNCHES a step,
+    VAL_LAUNCHES a `val`, and the epoch eval's flash attention and
+    temporal blocks (`expected_serving_launches`); ``weights_last`` holds
+    the 8 components, the metadata and ``adam.msgpack``; a fresh `Trainer`
+    on the card loads every component of it bit for bit as trained; the
+    eval CLI's metrics finite and its launches as the epoch eval's; the
+    card's `temporal_metrics_sequence` against the CPU's on the same
+    depths.  Returns the launches and the times."""
+    from endodav_tpu_torch.cli import evaluate_depth_video_pose, train_end_to_end_video
+    from endodav_tpu_torch.data.scared import ScaredVideos
+    from endodav_tpu_torch.eval.metrics_device import temporal_metrics_sequence
+    from endodav_tpu_torch.options import EndoDAVOptions
+    from endodav_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    data, splits = write_script_tree(root)
+    print(f"[training script] synthetic SCARED tree with ground truth written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    log_dir = os.path.join(root, "log")
+    steps, vals, evals, val_ms, saves = [], [], [], [], []
+    real = {k: getattr(Trainer, k)
+            for k in ("train_one_batch", "val", "run_epoch_eval", "save_model")}
+
+    def train_one_batch(self, batch):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        scalars = real["train_one_batch"](self, batch)
+        steps.append({"loss": float(scalars["loss"]), "loss_0": float(scalars["loss_0"])})
+        torch.cuda.synchronize(device)
+        steps[-1]["ms"] = (time.perf_counter() - t) * 1e3
+        return scalars
+
+    def val(self):
+        t = time.perf_counter()
+        vals.append(real["val"](self))  # a float: the card has finished
+        val_ms.append((time.perf_counter() - t) * 1e3)
+        return vals[-1]
+
+    def run_epoch_eval(self):
+        t = time.perf_counter()
+        out = real["run_epoch_eval"](self)
+        evals.append(time.perf_counter() - t)
+        return out
+
+    def save_model(self, mode="epoch"):
+        t = time.perf_counter()
+        folder = real["save_model"](self, mode)
+        saves.append(time.perf_counter() - t)
+        return folder
+
+    counters = _kernel_counters()
+    train_args = [*SCRIPT_TRAIN_FLAGS, "--data_path", data, "--log_dir", log_dir,
+                  "--num_epochs", "1", "--log_frequency", "2"]
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        for k, fn in {"train_one_batch": train_one_batch, "val": val,
+                      "run_epoch_eval": run_epoch_eval, "save_model": save_model}.items():
+            setattr(Trainer, k, fn)
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            trainer = own_policy("train_end_to_end_video", train_end_to_end_video.main,
+                                 train_args)
+            train_s = time.perf_counter() - t0
+        finally:
+            for k, fn in real.items():
+                setattr(Trainer, k, fn)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated(device)
+        print(f"[training script] train_end_to_end_video {' '.join(train_args)}: "
+              f"{len(steps)} steps, losses {[(round(s['loss'], 6), round(s['loss_0'], 6)) for s in steps]}, "
+              f"step ms {[round(s['ms'], 1) for s in steps]}, val scores {vals}, launches "
+              f"{launches}")
+        require(len(steps) == len(trainer.train_loader) >= 4,
+                f"training script: {len(steps)} steps, expected the epoch's "
+                f"{len(trainer.train_loader)} (4 or more)")
+        require(all(np.isfinite([s["loss"], s["loss_0"]]).all() for s in steps),
+                "training script: a step's loss is not finite")
+        require(len(vals) == -(-len(steps) // 2) and np.isfinite(vals).all(),
+                f"training script: val scores {vals}")
+        n_seq = len([n for n, gt in SCRIPT_SEQUENCES if gt])
+        serving, _ = expected_serving_launches(
+            trainer.opt, trainer.eval_forward(), [{"colors": range(SCRIPT_FRAMES)}] * n_seq)
+        expect = {k: n * len(steps) + VAL_LAUNCHES.get(k, 0) * len(vals) + serving.get(k, 0)
+                  for k, n in STEP_LAUNCHES.items()}
+        require(launches == expect, f"training script: launches {launches}, expected {expect}")
+
+        folder = os.path.join(log_dir, "endodav", "models", "weights_last")
+        names = sorted(trainer.mods)
+        files = sorted(os.listdir(folder))
+        want = sorted([f"{n}.msgpack" for n in names]
+                      + ["adam.msgpack", "depth_model.msgpack.meta.json"])
+        require(files == want, f"training script: weights_last holds {files}")
+        results = open(os.path.join(log_dir, "endodav", "models", "results.txt")).read()
+        print(f"[training script] results.txt: {results.strip()}")
+        require(results.count("Epoch 01:") == 1, "training script: no results line")
+
+        nbytes = sum(os.path.getsize(os.path.join(folder, f)) for f in files)
+        t0 = time.perf_counter()
+        fresh = own_policy("Trainer", Trainer, EndoDAVOptions().parse(
+            [*train_args, "--load_weights_folder", folder, "--models_to_load", *names]))
+        load_s = time.perf_counter() - t0
+        for name in names:
+            a, b = trainer.mods[name].state_dict(), fresh.mods[name].state_dict()
+            differ = [k for k in a if not torch.equal(a[k], b[k])]
+            require(next(iter(b.values())).is_cuda and not differ,
+                    f"training script: {name} loaded from weights_last differs in {differ[:4]}")
+        del fresh
+
+        eval_opt = EndoDAVOptions().parse([*SCRIPT_EVAL_FLAGS, "--data_path", data,
+                                           "--load_weights_folder", folder])
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = own_policy("build_depth_model", evaluate_depth_video_pose.evaluate, eval_opt)
+        cli_s = time.perf_counter() - t0
+        cli_launches = {k: fn.launches for k, fn in counters.items()}
+        cli_expect = {k: serving.get(k, 0) for k in counters}
+        require(cli_launches == cli_expect,
+                f"eval CLI: launches {cli_launches}, expected {cli_expect}")
+        depth = result["depth"]
+        metrics = np.concatenate([depth["mean_errors"], depth["mean_temporal"]])
+        pose = [(r["ate_mean"], r["re_mean"]) for r in result["pose"]]
+        print(f"[training script] evaluate_depth_video_pose {' '.join(SCRIPT_EVAL_FLAGS)}: "
+              f"depth and TAE/TAS {metrics.tolist()}, (ATE, RE) {pose}")
+        require(np.isfinite(metrics).all() and np.isfinite(pose).all() and len(pose) == n_seq,
+                "eval CLI: metrics not finite")
+
+    seq = ScaredVideos(data, [SCRIPT_SEQUENCES[2][0]])[0]
+    noise = np.random.default_rng(SEED).normal(0, 0.1, seq["depths"].shape)
+    pred = (seq["depths"] * (1 + noise)).astype(np.float32)
+    masks = (seq["depths"] > 1e-3) & (seq["depths"] < 150)
+    i2l = np.stack([np.linalg.inv(k @ p) for k, p in zip(seq["Ks"], seq["poses"])])
+    card = temporal_metrics_sequence(pred, masks, i2l, device=device)
+    cpu = temporal_metrics_sequence(pred, masks, i2l)
+    err = max(abs(a - b) for a, b in zip(card, cpu))
+    print(f"[training script] temporal_metrics_sequence card {card} vs CPU {cpu}")
+    require(err <= SCRIPT_TAE_TOL, f"TAE/TAS on the card differ from the CPU's by {err}")
+
+    ms = statistics.median(s["ms"] for s in steps[1:])
+    print(f"[training script] {ms:.1f} ms/step (median of steps 2-{len(steps)}), val "
+          f"{statistics.median(val_ms):.1f} ms (median), training CLI {train_s:.1f} s with the "
+          f"epoch eval {evals[0]:.1f} s and the checkpoints {[round(t, 2) for t in saves]} s "
+          f"({nbytes / 2 ** 20:.1f} MiB a folder), a Trainer loading weights_last {load_s:.1f} s, "
+          f"eval CLI {cli_s:.1f} s, peak memory {peak / 2 ** 30:.2f} GiB ({card_line()})")
+    total = {k: launches[k] + cli_launches[k] for k in launches}
+    return {"launches": total, "ms_per_step": ms, "step_ms": [s["ms"] for s in steps],
+            "val_ms": val_ms, "train_s": train_s, "eval_s": evals[0], "save_s": saves,
+            "folder_bytes": nbytes, "load_s": load_s, "cli_s": cli_s, "peak_bytes": peak,
+            "tae_err": err}
+
+
 # kernel-name fragments -> the categories of the profiles' breakdowns
 PROFILE_CATEGORIES = [
     ("port: grid_sample_fwd", ("grid_sample_fwd_kernel",)),
@@ -2403,6 +2632,8 @@ def main() -> int:
         train = run_training(device, root, trace_dir=trace_dir)
         dash_errs = check_dash_boundary(device, root)
         ssb_train = run_ssb_training(device, root)
+    with tempfile.TemporaryDirectory(prefix="training_script_", dir=os.getcwd()) as root:
+        script = run_training_script(device, root)
 
     def entry(name, source, replaces, launches, max_abs_err, head, shape, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2434,7 +2665,8 @@ def main() -> int:
     depth = next(r for r in warp_rows if r["call"] == "depth warps")
     colour_cp = next(r for r in cp_rows if r["call"] == "colour synthesis")
     consistency_cp = next(r for r in cp_rows if r["call"] == "flow_consistency")
-    trained = {k: n + ssb_train["launches"][k] for k, n in train["launches"].items()}
+    trained = {k: n + ssb_train["launches"][k] + script["launches"][k]
+               for k, n in train["launches"].items()}
     wide = sum(r["wide_temporal"] for r in runs + streams + bf16_legs + [baseline])
     wide_bf16 = sum(r["wide_temporal"] for r in bf16_legs)
     warp_src, warp_py = "endodav_tpu_torch/csrc/warp.cu", "endodav_tpu/kernels/warp_matmul.py"
@@ -2530,6 +2762,10 @@ def main() -> int:
           f"as built vs merged {shipped['as_built_vs_merged']}; ssb training "
           f"(scripts/train_video.sh) step ms {[round(t, 1) for t in ssb_train['step_ms']]}, peak "
           f"{ssb_train['peak_bytes'] / 2 ** 30:.2f} GiB; dash boundary errors {dash_errs} ({card})")
+    print(f"[summary] training script (scripts/train_video.sh, one epoch of "
+          f"{len(script['step_ms'])} steps): {script['ms_per_step']:.1f} ms/step, training CLI "
+          f"{script['train_s']:.1f} s (epoch eval {script['eval_s']:.1f} s), eval CLI "
+          f"{script['cli_s']:.1f} s, peak {script['peak_bytes'] / 2 ** 30:.2f} GiB ({card})")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,15 +20,13 @@ from endodav_tpu_torch.data.scared import ScaredVideos
 from endodav_tpu_torch.eval import engine
 from endodav_tpu_torch.options import EndoDAVOptions
 
-HEADER = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3", "tae", "tas")
-
 
 def report(result) -> list[str]:
     """The metric lines the CLI prints for an `evaluate_video_sequences` result."""
     temporal = result["mean_temporal"] if result["mean_temporal"] is not None else [np.nan] * 2
     vals = list(result["mean_errors"]) + list(temporal)
     ci = result["ci"]
-    lines = [" | ".join(f"{n}={v:.4f}" for n, v in zip(HEADER, vals)),
+    lines = [" | ".join(f"{n}={v:.4f}" for n, v in zip(engine.METRIC_NAMES, vals)),
              f"abs_rel 95% CI: [{ci[0]:.4f}, {ci[1]:.4f}]"]
     if result["mean_infer_ms"] is not None:
         lines.append(f"average inference time: {result['mean_infer_ms']:.2f} ms/frame")

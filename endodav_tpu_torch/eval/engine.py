@@ -1,8 +1,10 @@
 """Depth evaluation engine of the port.
 
-Port of the serving part of `endodav_tpu/eval/engine.py`:
+Port of `endodav_tpu/eval/engine.py`:
 `build_depth_model` (EndoDAV, EndoDAC or AF-SfM from ``--model_type``;
-random init from ``--seed``, reference .pth loads, ``--merge_lora``),
+random init from ``--seed``, a ``depth_model.msgpack`` of the JAX
+package's layout ahead of reference .pth loads, ``--merge_lora``),
+`load_component` (a pose-stack component from ``--load_weights_folder``),
 `depth_window_forward` (EndoDAV's whole-model window forward with the
 serving defaults of `endodav_tpu/eval/engine.py:248-295`: int8 GEMMs for
 the merged vitl graph, dedup at >= 512 patch tokens; a single-frame
@@ -20,10 +22,10 @@ explicit leg, never a fallback): ``ENDODAV_NO_FLASH`` (`ops/attention.py`),
 
 The JAX engine's ``ENDODAV_SCAN_TRUNK`` and ``ENDODAV_SPLIT_COMPILE`` only
 change how XLA compiles the same function; the port runs eagerly and has
-neither.  Every LoRA variant serves; a Dash model built here is in phase 1,
-as JAX serves a Dash ``.pth`` (its phase-2 ``_DashPhase2Model`` reads the
-phase from msgpack metadata; `models/lora.py:set_dash_phase2` switches a
-port model).  Not ported: msgpack checkpoints and ``--serve_mesh``.
+neither.  Every LoRA variant serves.  A Dash model serves in the phase
+that ``depth_model.msgpack.meta.json`` records (``dash_phase2``, JAX
+:110-116), merged in that phase under ``--merge_lora``; from a ``.pth`` it
+serves in phase 1, as JAX does.  ``--serve_mesh`` is not ported.
 """
 
 from __future__ import annotations
@@ -39,17 +41,19 @@ from endodav_tpu_torch.eval import metrics as M
 from endodav_tpu_torch.eval.video_inference import (DedupWindowForward, dedup_by_default,
                                                     infer_video_depth,
                                                     infer_video_depth_single_frame)
-from endodav_tpu_torch.geometry.transforms import disp_to_depth
+from endodav_tpu_torch.geometry.transforms import disp_to_depth, transformation_from_parameters
 from endodav_tpu_torch.models.afsfm import AFSfMDepth
 from endodav_tpu_torch.models.endodac import EndoDAC, endodac_lora_alpha
 from endodav_tpu_torch.models.endodav import EndoDAV, endodav_lora_alpha
-from endodav_tpu_torch.models.lora import LoRADense, merge_lora_params
+from endodav_tpu_torch.models.lora import LoRADense, merge_lora_params, set_dash_phase2
+from endodav_tpu_torch.utils.checkpoint import load_components, load_metadata
 from endodav_tpu_torch.utils.convert import load_reference_pth
 from endodav_tpu_torch.utils.precision import set_f32_policy
 
 __all__ = ["SPLITS_DIR", "splits_dir", "resolve_device", "init_random_", "build_depth_model",
-           "depth_window_forward", "evaluate_video_sequences", "confidence_interval_95",
-           "print_alignment_summary", "print_ci_row", "SERVE_SWITCHES"]
+           "load_component", "depth_window_forward", "evaluate_video_sequences",
+           "sequence_pose_pairs", "evaluate_pose_pairs", "confidence_interval_95", "print_alignment_summary",
+           "print_ci_row", "SERVE_SWITCHES", "METRIC_NAMES"]
 
 _DEFAULT_SPLITS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "splits")
@@ -57,6 +61,8 @@ _DEFAULT_SPLITS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 SPLITS_DIR = os.environ.get("ENDODAV_TPU_SPLITS_DIR", _DEFAULT_SPLITS)
 MIN_DEPTH = 1e-3
 MAX_DEPTH = 150.0
+# the video evals' metric line: 7 depth errors, then TAE and TAS
+METRIC_NAMES = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3", "tae", "tas")
 # the switches `depth_window_forward` reports (JAX :246-251, less the two
 # XLA compile strategies, plus the port's opt-in kernel routes)
 SERVE_SWITCHES = ("ENDODAV_NO_FLASH", "ENDODAV_NO_FUSED", "ENDODAV_NO_WARP_MM", "ENDODAV_INT8",
@@ -157,24 +163,45 @@ def _weight_files(opt) -> list[tuple[str, str]]:
     return []
 
 
+def _native_checkpoint(opt) -> str | None:
+    """``depth_model.msgpack`` of ``--load_weights_folder``, if there is one
+    (it wins over every .pth, JAX :97-120)."""
+    if not opt.load_weights_folder:
+        return None
+    path = os.path.join(os.path.expanduser(opt.load_weights_folder), "depth_model.msgpack")
+    return path if os.path.exists(path) else None
+
+
 def build_depth_model(opt, device: torch.device | None = None) -> torch.nn.Module:
     """The depth model of ``--model_type`` in eval mode on ``device``:
-    seeded random weights, replaced by the reference .pth files that
+    seeded random weights, replaced by ``depth_model.msgpack`` of
+    ``--load_weights_folder`` (a Dash model switched to the phase its
+    metadata records) or else by the reference .pth files that
     `_weight_files` names, LoRA merged on ``--merge_lora`` (with the
-    model's own alpha; galora, whose delta is gated by the input, serves
-    unmerged, as JAX :133-137); the f32 policy (`set_f32_policy`) set
-    first."""
+    model's own alpha, in the model's Dash phase; galora, whose delta is
+    gated by the input, serves unmerged, as JAX :133-137); the f32 policy
+    (`set_f32_policy`) set first."""
     device = resolve_device(opt) if device is None else device
     set_f32_policy()
     model = init_random_(_make_model(opt, opt.lora_type, opt.temporal_lora), opt.seed)
-    files = _weight_files(opt)
+    native = _native_checkpoint(opt)
+    files = [] if native else _weight_files(opt)
+    dash_phase2 = False
+    if native:
+        load_components(os.path.dirname(native), {"depth_model": model}, ["depth_model"])
+        print(f"[eval] loaded {native}")
+        if opt.lora_type == "dash":
+            dash_phase2 = bool(load_metadata(native).get("dash_phase2", False))
+            set_dash_phase2(model, dash_phase2)
+            print(f"[eval] dash checkpoint phase: "
+                  f"{'2 (post-SVD-boundary)' if dash_phase2 else '1'}")
     for sub, path in files:
         if not os.path.exists(path):
             raise FileNotFoundError(f"no weights at {path}")
         report = load_reference_pth(model.get_submodule(sub), path)
         print(f"[eval] loaded {report['loaded']} tensors from {path} "
               f"({len(report['missing'])} missing, {len(report['unexpected'])} unexpected)")
-    if not files:
+    if not native and not files:
         print(f"[eval] no weights given; random init from seed {opt.seed}")
     if opt.merge_lora and opt.lora_type == "galora":
         print("[eval] --merge_lora ignored: galora's input-gated delta "
@@ -183,11 +210,25 @@ def build_depth_model(opt, device: torch.device | None = None) -> torch.nn.Modul
         r = opt.lora_rank
         alpha = (endodav_lora_alpha if opt.model_type == "endodav"
                  else endodac_lora_alpha)(opt.lora_type, r)
-        merged = merge_lora_params(model.state_dict(), opt.lora_type, r, alpha)
+        merged = merge_lora_params(model.state_dict(), opt.lora_type, r, alpha,
+                                   dash_phase2=dash_phase2)
         model = _make_model(opt, "none", False)
         model.load_state_dict(merged, strict=True)
         print(f"[eval] merged {opt.lora_type} adapters into base weights (r={r}, alpha={alpha})")
     return model.to(device).eval()
+
+
+def load_component(opt, name: str, module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` loaded from ``<name>.msgpack`` (or a reference
+    ``<name>.pth``) of ``--load_weights_folder`` (JAX :176-192); without a
+    folder, or with neither file in it, it keeps the weights it has."""
+    if not opt.load_weights_folder:
+        print(f"[eval] no --load_weights_folder; {name} runs with random init")
+        return module
+    folder = os.path.expanduser(opt.load_weights_folder)
+    if not load_components(folder, {name: module}, [name]):
+        print(f"[eval] neither {name}.msgpack nor {name}.pth in {folder}; random init")
+    return module
 
 
 def depth_window_forward(model: torch.nn.Module):
@@ -335,4 +376,78 @@ def evaluate_video_sequences(opt, sequences, forward=None, device=None):
         "mean_infer_ms": float(np.mean(infer_times)) if infer_times else None,
         "ratios": ratios,
         "align_stats": align_stats,
+    }
+
+
+def sequence_pose_pairs(data) -> tuple[np.ndarray, np.ndarray]:
+    """A sequence's consecutive frame pairs [N-1, H, W, 6] f32 in [0, 1]
+    (frame t+1, frame t) and the ground-truth relative poses between them
+    [N-1, 4, 4], the inputs of `evaluate_pose_pairs`."""
+    colors = data["colors"].astype(np.float32) / 255.0
+    poses = data["poses"]
+    gt_local = np.stack([(poses[i + 1] @ np.linalg.inv(poses[i])).astype(np.float32)
+                         for i in range(len(poses) - 1)])
+    return gt_local, np.concatenate([colors[1:], colors[:-1]], axis=-1)
+
+
+def evaluate_pose_pairs(opt, gt_local_poses, colors_pairs, pose_modules=None, num_tracks=None,
+                        device=None):
+    """Pairwise pose and intrinsics, then ATE/RE on 5-frame tracks (JAX
+    :537-611).
+
+    colors_pairs: [N, H, W, 6] float32 (frame t+1, frame t) pairs, the
+    input order of evaluate_pose.py:128-133; ``pose_modules`` the
+    (pose encoder, pose decoder, intrinsics head), else built from the
+    seed and loaded by `load_component`.  Pairs run 16 at a time (JAX's
+    chunk), the last batch ragged.  ``num_tracks`` track windows (default: one a
+    pair, the convention of evaluate_depth_video_pose.py:281-288)."""
+    device = resolve_device(opt) if device is None else device
+    if pose_modules is None:
+        from endodav_tpu_torch.models.decoders import IntrinsicsHead, PoseDecoder
+        from endodav_tpu_torch.models.resnet import ResNetEncoder
+        from endodav_tpu_torch.train.trainer import init_train_
+
+        mods = init_train_({"pose_encoder": ResNetEncoder(opt.num_layers, num_input_images=2),
+                            "pose": PoseDecoder(512, num_frames_to_predict_for=2),
+                            "intrinsics_head": IntrinsicsHead(256)}, opt.seed)
+        for name, module in mods.items():
+            load_component(opt, name, module)
+            module.to(device).eval()
+        pose_modules = (mods["pose_encoder"], mods["pose"], mods["intrinsics_head"])
+    enc, dec, intr = pose_modules
+    pred_poses, pred_Ks = [], []
+    with torch.inference_mode():
+        for c0 in range(0, len(colors_pairs), 16):
+            pair = torch.as_tensor(np.asarray(colors_pairs[c0:c0 + 16], np.float32)).to(device)
+            axisangle, translation, mid = dec([enc(pair, False)[-1]])
+            K = intr(mid, opt.width, opt.height)
+            T = transformation_from_parameters(axisangle[:, 0, 0], translation[:, 0, 0])
+            pred_poses.append(T.cpu().numpy())
+            pred_Ks.append(K[:, :3, :3].cpu().numpy())
+    pred_poses, pred_Ks = np.concatenate(pred_poses), np.concatenate(pred_Ks)
+
+    track = 5
+    n = min(len(gt_local_poses), len(pred_poses))
+    gt_local, pred_local = np.asarray(gt_local_poses)[:n], pred_poses[:n]
+    ates, res = [], []
+    for i in range(min(n if num_tracks is None else num_tracks, n)):
+        local_xyzs = np.array(M.dump_xyz(pred_local[i:i + track - 1]))
+        gt_xyzs = np.array(M.dump_xyz(gt_local[i:i + track - 1]))
+        local_rs = np.array(M.dump_r(pred_local[i:i + track - 1]))
+        gt_rs = np.array(M.dump_r(gt_local[i:i + track - 1]))
+        ates.append(M.compute_ate(gt_xyzs, local_xyzs))
+        res.append(M.compute_re(local_rs, gt_rs))
+
+    def stat(values, scale):
+        return float(values.mean() / scale), float(values.std() / scale)
+
+    return {
+        "pred_poses": pred_poses, "pred_intrinsics": pred_Ks,
+        "ate_mean": float(np.mean(ates)), "ate_std": float(np.std(ates)),
+        "ate_ci": confidence_interval_95(ates),
+        "re_mean": float(np.mean(res)), "re_std": float(np.std(res)),
+        "intrinsics_stats": {"fx": stat(pred_Ks[:, 0, 0], opt.width),
+                             "fy": stat(pred_Ks[:, 1, 1], opt.height),
+                             "cx": stat(pred_Ks[:, 0, 2], opt.width),
+                             "cy": stat(pred_Ks[:, 1, 2], opt.height)},
     }

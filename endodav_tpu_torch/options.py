@@ -1,8 +1,9 @@
 """Flags of the port's eval CLIs and trainer.
 
-The depth eval (video and single-frame) and training subset of
+The depth and pose eval (video and single-frame) and training subset of
 `endodav_tpu/options.py`, with the same names and defaults so shell
-scripts carry over, plus
+scripts carry over (``scripts/train_video.sh`` runs both its commands on
+the port's CLIs), plus
 ``--seed`` for the random init used when no weights are given.
 ``--no_cuda`` selects the CPU; without it the port runs on CUDA and fails
 when there is no GPU.
@@ -32,6 +33,8 @@ class EndoDAVOptions:
         self.parser = p
 
         p.add_argument("--data_path", type=str, default=os.path.join(os.getcwd(), "endovis_data"))
+        p.add_argument("--log_dir", type=str, default=os.path.join(os.path.expanduser("~"), "tmp"),
+                       help="the trainer writes <log_dir>/<model_type>/models/")
 
         # MODEL
         p.add_argument("--model_type", type=str, choices=["endodav", "endodac", "afsfm"],
@@ -80,6 +83,14 @@ class EndoDAVOptions:
         p.add_argument("--legacy_frozen_groups", nargs="*", type=str, default=[],
                        help="schedule groups whose optimizer gate is forced to 0")
         p.add_argument("--no_ssim", action="store_true")
+        p.add_argument("--use_stereo", action="store_true",
+                       help="recorded in the checkpoint's metadata, as JAX does")
+        p.add_argument("--random_train", action="store_true",
+                       help="sample independent frames while the pose side trains "
+                            "(--tune_depth_interval alternation)")
+        p.add_argument("--host_preprocess", action="store_true",
+                       help="build the training pyramid and jitter on the host "
+                            "(default: on the card from the scale-0 frames)")
 
         # OPTIMIZATION
         p.add_argument("--batch_size", type=int, default=8)
@@ -92,9 +103,15 @@ class EndoDAVOptions:
         p.add_argument("--no_cuda", action="store_true", help="run on the CPU")
         p.add_argument("--num_workers", type=int, default=4)
         p.add_argument("--log_frequency", type=int, default=400)
+        p.add_argument("--save_frequency", type=int, default=5,
+                       help="accepted for the JAX CLI's sake; every epoch is saved")
         p.add_argument("--load_weights_folder", type=str, default=None,
-                       help="folder holding a reference-convention depth_model.pth "
+                       help="a weights_* folder (<component>.msgpack, as the JAX package "
+                            "writes), or reference-convention .pth files "
                             "(afsfm: encoder.pth and depth.pth)")
+        p.add_argument("--models_to_load", nargs="+", type=str,
+                       default=["position_encoder", "position"],
+                       help="the components the trainer loads from --load_weights_folder")
 
         # EVALUATION
         p.add_argument("--depth_align", type=str, default="scale_shift",
@@ -105,6 +122,8 @@ class EndoDAVOptions:
         p.add_argument("--eval_split", type=str, default="scared_video",
                        choices=["scared_video", "endovis", "hamlyn", "c3vd"])
         p.add_argument("--disable_median_scaling", action="store_true")
+        p.add_argument("--eval_mono", action="store_true",
+                       help="accepted for the shipped scripts' sake (monocular is the only mode)")
         p.add_argument("--ext_disp_to_eval", type=str, default=None,
                        help="evaluate_depth: an .npy of already-scaled disparities")
         p.add_argument("--save_pred_disps", action="store_true")

@@ -2,8 +2,8 @@
 
 Port of `endodav_tpu/train/losses.py:80-425`: `forward_flow_nets` (the
 position, occlusion and transform nets for both source frames),
-`position_phase_loss` (phase 0) and `main_phase` (depth, pose, image
-synthesis and the full loss).  The warps are batched exactly as in JAX:
+`position_phase_loss` (phase 0), `main_phase` (depth, pose, image
+synthesis and the full loss) and `validation_ncc` (the score `val` logs).  The warps are batched exactly as in JAX:
 one `grid_sample` launch per warp kind -- registration (img_tile over the
 scales), colour synthesis (img_tile, coordinate-only backward), the
 temporal depth warps (all 16 in one launch, fused backward) -- plus one
@@ -27,14 +27,15 @@ from __future__ import annotations
 
 import torch
 
-from endodav_tpu_torch.geometry.losses import abs_jax, clip_jax, reprojection_loss, smooth_loss
+from endodav_tpu_torch.geometry.losses import (abs_jax, clip_jax, ncc, reprojection_loss,
+                                               smooth_loss)
 from endodav_tpu_torch.geometry.transforms import (backproject_depth, disp_to_depth,
                                                    project_3d, transformation_from_parameters)
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.ops.sampling import (flow_to_grid, flow_warp, grid_sample,
                                             occlusion_mask_backward)
 
-__all__ = ["forward_flow_nets", "position_phase_loss", "main_phase"]
+__all__ = ["forward_flow_nets", "position_phase_loss", "main_phase", "validation_ncc"]
 
 
 def _up(x, hw):
@@ -268,3 +269,16 @@ def main_phase(mods, batch, cfg, temporal_weight: float = 1.0):
     total = total / n_s
     losses["loss"] = total
     return total, {"losses": losses, "outputs": outputs}
+
+
+def validation_ncc(outputs, batch, scales):
+    """The NCC registration score of a val batch (`validation_ncc`,
+    losses.py:426-438): per scale, the better (lower) of the two source
+    frames' negative NCC against frame 0, averaged; negated."""
+    target = batch[("color", 0, 0)].mean(dim=-1, keepdim=True)
+    total = 0.0
+    for s in scales:
+        regs = [ncc(outputs[("registration", s, f)].mean(dim=-1, keepdim=True), target)
+                for f in (-1, 1)]
+        total = total + torch.cat(regs, dim=-1).amin(dim=-1).mean()
+    return -(total / len(scales))

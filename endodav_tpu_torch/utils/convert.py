@@ -11,8 +11,9 @@ torch loader leaves to flax's init: the BatchNorm of EndoDAC's RCUs
 (``use_bn``), and AF-SfM as its two components nested under
 ``encoder.`` and ``depth.``.  `from_jax_params` runs them backwards,
 undoing the `_conv_w`/`_convT_w`/`_lin_w` transposes, and carries flax
-``batch_stats`` into the BatchNorm buffers.  Msgpack checkpoints are not
-read here: that format needs flax.
+``batch_stats`` into the BatchNorm buffers; `to_jax_params` runs them
+forwards, from a port state dict to the JAX package's ``variables[name]``
+of a component (what `utils/checkpoint.py` writes as msgpack).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import torch
 
 __all__ = ["endodav_rules", "endodac_rules", "afsfm_rules", "resnet_encoder_rules",
            "decoder_rules", "component_rules",
-           "COMPONENT_KIND", "from_jax_params", "load_reference_pth", "SKIP_PATTERNS"]
+           "COMPONENT_KIND", "from_jax_params", "to_jax_params", "jax_paths", "load_reference_pth",
+           "SKIP_PATTERNS"]
 
 # reference keys with no counterpart in the port (checkpoint.py:_SKIP_PATTERNS)
 SKIP_PATTERNS = (
@@ -40,6 +42,12 @@ SKIP_PATTERNS = (
 _CONV = "conv"    # flax (kh, kw, I, O) -> torch (O, I, kh, kw)
 _CONVT = "convT"  # flax (kh, kw, O, I) -> torch ConvTranspose (I, O, kh, kw)
 _LIN = "lin"      # flax (I, O) -> torch (O, I)
+_FORWARD = {
+    None: lambda v: v,
+    _CONV: lambda v: np.transpose(v, (2, 3, 1, 0)),
+    _CONVT: lambda v: np.transpose(v, (2, 3, 1, 0)),
+    _LIN: lambda v: np.transpose(v, (1, 0)),
+}
 _INVERSE = {
     None: lambda v: v,
     _CONV: lambda v: np.transpose(v, (3, 2, 0, 1)),
@@ -296,6 +304,35 @@ def from_jax_params(params: dict, kind: str = "endodav",
     if missing:
         raise ValueError(f"no conversion rule for {len(missing)} JAX leaves: {missing[:8]}")
     return sd
+
+
+def jax_paths(kind: str) -> dict:
+    """{port key: (torch layout, path in JAX's variables)} of a component of
+    ``kind``; the path starts with its collection, "params" or
+    "batch_stats"."""
+    return {tk: (layout, fk if fk[0] == "batch_stats" else ("params",) + fk)
+            for tk, fk, layout in component_rules(kind)}
+
+
+def to_jax_params(state_dict: dict, kind: str = "endodav") -> dict:
+    """The port's state dict of a component of ``kind`` (or any subset of
+    it, such as Adam's moments of its parameters) -> JAX's variables of
+    that component: ``{"params": ...}``, with ``"batch_stats"`` beside it
+    where the state dict holds BatchNorm statistics; kernels in flax's
+    layout, float32 numpy leaves.  Raises if a key has no rule."""
+    paths = jax_paths(kind)
+    missing = sorted(k for k in state_dict if k not in paths)
+    if missing:
+        raise ValueError(f"no conversion rule for {len(missing)} port keys: {missing[:8]}")
+    out: dict = {}
+    for key, value in state_dict.items():
+        layout, path = paths[key]
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        arr = value.detach().cpu().float().numpy() if torch.is_tensor(value) else value
+        node[path[-1]] = np.ascontiguousarray(_FORWARD[layout](np.asarray(arr, np.float32)))
+    return out
 
 
 def load_reference_pth(model: torch.nn.Module, path: str) -> dict:

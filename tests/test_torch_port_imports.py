@@ -1,6 +1,9 @@
 """The port imports without JAX: neither `import endodav_tpu_torch` nor any
-of its submodules may pull in jax, flax or the JAX package."""
+of its submodules may pull in jax, flax, msgpack or the JAX package, and no
+import statement of the port or of `chip_smoke.py`, at module level or
+inside a function, names one of them."""
 
+import ast
 import os
 import pkgutil
 import subprocess
@@ -14,6 +17,7 @@ import endodav_tpu_torch
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "endodav_tpu")
 
 
 def _submodules():
@@ -24,17 +28,39 @@ def _submodules():
 def test_port_imports_leave_jax_out():
     mods = _submodules()
     assert "endodav_tpu_torch.eval.engine" in mods and "endodav_tpu_torch.kernels._build" in mods
-    for new in ("eval.streaming", "kernels.fused_rcu", "kernels.temporal_attention"):
+    for new in ("eval.streaming", "kernels.fused_rcu", "kernels.temporal_attention",
+                "utils.msgpack", "utils.checkpoint", "eval.metrics_device",
+                "cli.train_end_to_end_video", "cli.evaluate_depth_video_pose"):
         assert f"endodav_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'endodav_tpu'))\n"
+            f"{FORBIDDEN!r})\n"
             "print('BAD', bad)\n"
             "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _imported_names(path):
+    """Top-level package of every import statement in the file."""
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_import_statement_names_jax_flax_or_msgpack():
+    """Imports inside functions too (a kernel or a reader imports lazily)."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(REPO, "endodav_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 50
+    bad = {os.path.relpath(f, REPO): sorted(set(_imported_names(f)) & set(FORBIDDEN))
+           for f in files}
+    assert not {f: b for f, b in bad.items() if b}
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
