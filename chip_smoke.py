@@ -114,8 +114,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bit for bit; `cli/evaluate_depth_video_pose` on it with finite
      metrics and its launches; the batched TAE/TAS on the card against the
      CPU; ms/step, val, eval, checkpoint and CLI seconds and peak memory;
+     then the other depth models on the tree through an ``endovis`` split
+     of its sequences (`run_single_frame_training`): `train_video_dac.sh`'s
+     ``--T -1`` raising JAX's error, its EndoDAC vitb dvlora model and
+     AF-SfM for 2 steps each in f32 and in bf16 (launches checked, LoRA B
+     moved, AF-SfM's depth weights and statistics unmoved); the ssb
+     training in bf16 beside f32 on the same weights and batches
+     (`run_bf16_training`: step 1's losses with the warp kernels within
+     2e-3 of the plain versions', the attention kernels on bf16 tensors,
+     ms/step and peak of each, the bf16-to-f32 gap reported), a small
+     bf16 step on the card against the CPU; and both commands
+     of `scripts/train_video_dac1.sh` (`run_dac1_script`: one epoch of 4
+     steps of 16 frames with `val`, the epoch eval on the window path, the
+     LoRA A/B stepped, ``weights_last`` reloaded bit for bit, the script's
+     own eval flags refusing it as JAX's do, the pose eval CLI with
+     ``--disable_conv_head``); the kernel phases add flash attention at the
+     training batches (B=16 and B=8 at 12 heads) with both gradients in
+     f32 and bf16, temporal attention's bf16 gradient at the three
+     training shapes, and the warps and splat fed bf16 through
+     `ops/sampling.py` against the plain versions;
   9. a JSON line per kernel (rows 1-6 with their bf16 launches and bf16
-     error against the plain version) and, last, the device line.
+     error against the plain version; rows 1 and 4 also their launches in
+     bf16 training and their rows at the training shapes) and, last, the
+     device line.
 
 ``--profile-step TRACE_DIR`` adds a `torch.profiler` run of one more
 full-width step, ``--profile-serving TRACE_DIR`` one each of vitl, the
@@ -136,6 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -162,8 +184,13 @@ BF16_REL_MAX, BF16_REL_MEAN = 2.0, 1.5
 # flash attention (B, N): 224x280 window chunks (2 x 32 frames); 518x644
 # window chunks and dedup encode batches of 32 frames at vits (H=6) and
 # vitl (H=16); EndoDAC's single-frame batches of 8 224x280 frames at vits
-# and vitb (H=12)
-FLASH_SHAPES = [(64, 321, 6), (64, 1703, 6), (32, 1703, 16), (8, 321, 6), (8, 321, 12)]
+# and vitb (H=12), which are also train_video_dac.sh's vitb training
+# batches; the training step's 16 frames (EndoDAV B*T, train_video_dac1.sh's
+# EndoDAC batch)
+FLASH_SHAPES = [(64, 321, 6), (64, 1703, 6), (32, 1703, 16), (8, 321, 6), (8, 321, 12),
+                (16, 321, 6)]
+# the gradient of the kernel path at the training batches: (B, N, H)
+FLASH_GRAD_SHAPES = [(16, 321, 6), (8, 321, 12)]
 # temporal block (C, rows) of one 518x644 window: vits's four motion
 # modules; vitl's C=1024 ones and its C=256 ones
 TEMPORAL_SHAPES = [(192, 1702), (384, 437), (64, 6808), (1024, 1702), (1024, 437), (256, 1702),
@@ -455,29 +482,37 @@ def check_flash(device, shapes=FLASH_SHAPES, dh=64, timing=True):
     return rows
 
 
-def check_flash_grad(device, b=16, n=321, heads=6, dh=64):
+def check_flash_grad(device, shapes=FLASH_GRAD_SHAPES, dh=64):
     """The kernel path's d_qkv (CUDA forward, recompute backward) against
-    the plain version's autograd, at the training step's ViT shape."""
+    the plain version's autograd on the same inputs (in f32 for bf16 ones),
+    at the training batches' ViT shapes, f32 and bf16.  Returns the largest
+    error at each dtype."""
     from endodav_tpu_torch.kernels.flash_attention import attention_reference, qkv_attention
 
-    c = heads * dh
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     g = torch.Generator(device=device).manual_seed(SEED + 2)
-    qkv = torch.randn((b, n, 3 * c), generator=g, device=device)
-    cot = torch.randn((b, n, c), generator=g, device=device)
-    x = qkv.clone().requires_grad_()
-    out = qkv_attention(x, heads)
-    require(out.grad_fn is not None, "qkv_attention returned a result without grad_fn")
-    (got,) = torch.autograd.grad(out, x, cot)
-    xr = qkv.clone().requires_grad_()
-    ref = attention_reference(*(xr[..., i * c:(i + 1) * c].reshape(b, n, heads, dh)
-                                for i in range(3)), dh ** -0.5).reshape(b, n, c)
-    (want,) = torch.autograd.grad(ref, xr, cot)
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    print(f"[flash_attention grad] B={b} N={n}: max |err| {err:.3e} (largest entry {scale:.3e})")
-    require(err <= TOL[torch.float32] * max(1.0, scale),
-            f"flash_attention gradient: max |err| {err} above {TOL[torch.float32]}")
-    return err
+    for b, n, heads in shapes:
+        c = heads * dh
+        qkv = torch.randn((b, n, 3 * c), generator=g, device=device)
+        cot = torch.randn((b, n, c), generator=g, device=device)
+        for dtype in errs:
+            x = qkv.to(dtype).requires_grad_()
+            out = qkv_attention(x, heads)
+            require(out.grad_fn is not None, "qkv_attention returned a result without grad_fn")
+            (got,) = torch.autograd.grad(out, x, cot.to(dtype))
+            require(got.dtype == dtype, f"flash_attention gradient in {got.dtype}, not {dtype}")
+            xr = qkv.to(dtype).float().requires_grad_()
+            ref = attention_reference(*(xr[..., i * c:(i + 1) * c].reshape(b, n, heads, dh)
+                                        for i in range(3)), dh ** -0.5).reshape(b, n, c)
+            (want,) = torch.autograd.grad(ref, xr, cot.to(dtype).float())
+            err = (got.float() - want).abs().max().item()
+            scale = want.abs().max().item()
+            print(f"[flash_attention grad] B={b} N={n} H={heads} {str(dtype)[6:]}: max |err| "
+                  f"{err:.3e} (largest entry {scale:.3e})")
+            require(err <= TOL[dtype] * max(1.0, scale),
+                    f"flash_attention gradient B={b} H={heads} {dtype}: max |err| {err}")
+            errs[dtype] = max(errs[dtype], err)
+    return errs
 
 
 def unfused_block(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads):
@@ -799,6 +834,73 @@ def check_warps(device, hw=TRAIN_HW):
     return rows
 
 
+BF16_WARP_TOL = 2 ** -7  # two bf16 ulps of the largest entry
+
+
+def check_warps_bf16(device, hw=TRAIN_HW):
+    """The warps and the splat as the bf16 training step feeds them, through
+    `ops/sampling.py`, whose wrapper casts to f32 for the f32 kernels and
+    back as JAX's does, against the same calls on the plain versions
+    (ENDODAV_NO_WARP_MM=1): the registration warp (bf16 flows on f32
+    frames, img_tile 4), the depth warps (bf16 depths on an f32 grid, both
+    gradients) and the occlusion splat (bf16 flows).  Outputs and
+    gradients in JAX's dtypes, within two bf16 ulps of the largest entry
+    (WARP_TOL for the f32 registration output).  Returns the largest error
+    relative to max(1, the largest entry)."""
+    from endodav_tpu_torch.ops import sampling as S
+
+    h, w = hw
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    yy, xx = torch.meshgrid(torch.arange(h, device=device, dtype=torch.float32),
+                            torch.arange(w, device=device, dtype=torch.float32), indexing="ij")
+
+    def flows(n):  # smooth (dy, dx) flows of a few pixels, bf16
+        ph = torch.rand((n, 1, 1), generator=g, device=device) * 6.283
+        return torch.stack([3 * torch.sin(ph + xx / 23), 3 * torch.cos(ph + yy / 17)],
+                           -1).to(torch.bfloat16)
+
+    frames = torch.rand((32, h, w, 3), generator=g, device=device)
+    depth = (1 + 99 * torch.rand((240, h, w, 1), generator=g, device=device)).to(torch.bfloat16)
+    fx, fy = _coords(g, 240, h, w, device)
+    grid = torch.stack([fx / (w - 1) * 2 - 1, fy / (h - 1) * 2 - 1], -1)
+    calls = {
+        "registration": (lambda f: S.flow_warp(frames, f, img_grad=False, img_tile=4),
+                         [flows(128)]),
+        "depth warps": (lambda d, gr: S.grid_sample(d, gr, padding_mode="zeros",
+                                                    align_corners=True), [depth, grid]),
+        "occlusion splat": (lambda f: S.occlusion_mask_backward(f)[1], [flows(128)]),
+    }
+    rows = []
+    for name, (fn, leaves) in calls.items():
+        outs = {}
+        for route, env in (("kernel", {}), ("plain", {"ENDODAV_NO_WARP_MM": "1"})):
+            with _env(env):
+                ins = [t.clone().requires_grad_(name != "occlusion splat") for t in leaves]
+                out = fn(*ins)
+                if name == "occlusion splat":
+                    outs[route] = [out]
+                    continue
+                cot = (torch.randn(out.shape, generator=g, device=device).to(out.dtype)
+                       if route == "kernel" else outs["kernel"][-1])
+                outs[route] = [out.detach(), *torch.autograd.grad(out, ins, cot), cot]
+        got, want = outs["kernel"][:len(leaves) + 1], outs["plain"][:len(leaves) + 1]
+        dtypes = [str(t.dtype)[6:] for t in got]
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+        scales = [max(1.0, b.float().abs().max().item()) for b in want]
+        row = dict(call=name, dtypes=dtypes, err=errs,
+                   rel=[e / sc for e, sc in zip(errs, scales)])
+        print(f"[warp bf16] {row}")
+        require(dtypes == [str(t.dtype)[6:] for t in want], f"warp bf16 {name}: dtypes differ")
+        for i, (e, sc) in enumerate(zip(errs, scales)):
+            tol = WARP_TOL if got[i].dtype == torch.float32 and i == 0 else BF16_WARP_TOL
+            require(e <= tol * sc, f"warp bf16 {name}: entry {i} max |err| {e} above {tol * sc}")
+        rows.append(row)
+    require([r["dtypes"] for r in rows] == [["float32", "bfloat16"],
+                                            ["bfloat16", "bfloat16", "float32"], ["bfloat16"]],
+            f"warp bf16: output and gradient dtypes {[r['dtypes'] for r in rows]}")
+    return max(max(r["rel"]) for r in rows)
+
+
 def check_warp_branches(device, n=16, hw=TRAIN_HW):
     """The fused backward (depth warps: C=1, zeros mode) on coordinates
     displaced by up to +-40 px in the left half of the grid, whose tiles'
@@ -1065,21 +1167,30 @@ def check_temporal_attention(device, shapes=TATTN_SHAPES, heads=8, timing=True):
             print(f"[temporal_attention] {row}")
             require(err <= TOL[dtype], f"temporal_attention {row}: max |err| above {TOL[dtype]}")
             rows.append(row)
-    nrows, t, dh = shapes[0]
-    qkv = [torch.randn((nrows, t, heads, dh), generator=g, device=device) for _ in range(3)]
-    cot = torch.randn((nrows, t, heads, dh), generator=g, device=device)
-    got_in = [a.clone().requires_grad_() for a in qkv]
-    out = temporal_attention(*got_in)
-    require(out.grad_fn is not None, "temporal_attention returned a result without grad_fn")
-    got = torch.autograd.grad(out, got_in, cot)
-    ref_in = [a.clone().requires_grad_() for a in qkv]
-    want = torch.autograd.grad(temporal_attention_reference(*ref_in, dh ** -0.5), ref_in, cot)
-    grad_err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    scale = max(b.abs().max().item() for b in want)
-    print(f"[temporal_attention grad] rows={nrows} T={t} Dh={dh}: max |err| {grad_err:.3e} "
-          f"(largest entry {scale:.3e})")
-    require(grad_err <= TOL[torch.float32] * max(1.0, scale),
-            f"temporal_attention gradient: max |err| {grad_err}")
+    # the gradient at a training shape, f32; and in bf16 at the three shapes
+    # of the bf16 training step (--compute_dtype bfloat16), against the
+    # plain version's autograd in f32 on the same bf16 inputs
+    grad_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype, grad_shapes in ((torch.float32, shapes[:1]), (torch.bfloat16, shapes[:3])):
+        for nrows, t, dh in grad_shapes:
+            qkv = [torch.randn((nrows, t, heads, dh), generator=g, device=device).to(dtype)
+                   for _ in range(3)]
+            cot = torch.randn((nrows, t, heads, dh), generator=g, device=device).to(dtype)
+            got_in = [a.clone().requires_grad_() for a in qkv]
+            out = temporal_attention(*got_in)
+            require(out.grad_fn is not None,
+                    "temporal_attention returned a result without grad_fn")
+            got = torch.autograd.grad(out, got_in, cot)
+            ref_in = [a.float().requires_grad_() for a in qkv]
+            want = torch.autograd.grad(temporal_attention_reference(*ref_in, dh ** -0.5),
+                                       ref_in, cot.float())
+            err = max((a.float() - b).abs().max().item() for a, b in zip(got, want))
+            scale = max(b.abs().max().item() for b in want)
+            print(f"[temporal_attention grad] rows={nrows} T={t} Dh={dh} {str(dtype)[6:]}: "
+                  f"max |err| {err:.3e} (largest entry {scale:.3e})")
+            require(all(a.dtype == dtype for a in got) and err <= TOL[dtype] * max(1.0, scale),
+                    f"temporal_attention gradient rows={nrows} Dh={dh} {dtype}: max |err| {err}")
+            grad_err[dtype] = max(grad_err[dtype], err)
     return rows, grad_err
 
 
@@ -1880,13 +1991,19 @@ def train_options(root, *extra):
     return EndoDAVOptions().parse([*TRAIN_FLAGS, "--data_path", root, *extra])
 
 
-def check_small_step(device, root, env=None):
+def check_small_step(device, root, env=None, dtype="float32"):
     """One training step of a small configuration on the card (kernels)
     and on the CPU (plain versions), from the same seed weights and the
-    same loader batch, with ``env`` set for both steps."""
+    same loader batch, with ``env`` set for both steps; with ``dtype``
+    "bfloat16" both train in bf16 (``--compute_dtype``), held to the bf16
+    bounds: losses BF16_LOSS_RTOL, gradients TOL[bf16] of their largest
+    entry, the updates unchecked (Adam's first step moves every entry by
+    about lr whatever its gradient's rounding)."""
     from endodav_tpu_torch.train.trainer import Trainer
 
-    args = ["--height", "64", "--width", "96", "--T", "4", "--depth_image_shape", "56", "70"]
+    args = ["--height", "64", "--width", "96", "--T", "4", "--depth_image_shape", "56", "70",
+            "--compute_dtype", dtype]
+    bf16 = dtype == "bfloat16"
     gpu = own_policy("Trainer", Trainer, train_options(root, *args), device)
     cpu = own_policy("Trainer", Trainer, train_options(root, *args, "--no_cuda"))
     batch = next(iter(cpu.train_loader))
@@ -1898,8 +2015,8 @@ def check_small_step(device, root, env=None):
     for k in ("loss_0", "loss"):
         a, b = float(got[k]), float(want[k])
         errs[k] = abs(a - b) / abs(b)
-        require(np.isfinite(a) and errs[k] <= STEP_LOSS_RTOL,
-                f"small step {k}: card {a} vs CPU {b}, relative {errs[k]}")
+        require(np.isfinite(a) and errs[k] <= (BF16_LOSS_RTOL if bf16 else STEP_LOSS_RTOL),
+                f"small step {dtype} {k}: card {a} vs CPU {b}, relative {errs[k]}")
     named = {"lora_B": ("depth_model", "pretrained.blocks.5.mlp.fc1.lora_B"),
              "pose_2": ("pose", "convs.pose_2.weight")}
     for label, (comp, pname) in named.items():
@@ -1908,13 +2025,15 @@ def check_small_step(device, root, env=None):
         require(pg.grad is not None and pc.grad is not None, f"small step: {pname} got no gradient")
         gg, gc = pg.grad.cpu(), pc.grad
         errs[f"grad {label}"] = (gg - gc).abs().max().item() / gc.abs().max().item()
-        require(errs[f"grad {label}"] <= STEP_GRAD_RTOL,
+        require(errs[f"grad {label}"] <= (TOL[torch.bfloat16] if bf16 else STEP_GRAD_RTOL),
                 f"small step: gradient of {pname} relative err {errs[f'grad {label}']}")
+        if bf16:
+            continue
         sure = gc.abs() > 1e-3 * gc.abs().max()
         errs[f"update {label}"] = (pg.detach().cpu() - pc.detach())[sure].abs().max().item()
         require(errs[f"update {label}"] <= STEP_UPDATE_ATOL,
                 f"small step: updated {pname} differs by {errs[f'update {label}']}")
-    label = " ".join(f"{k}={v}" for k, v in (env or {}).items())
+    label = " ".join([f"{k}={v}" for k, v in (env or {}).items()] + [dtype] * bf16)
     print(f"[small step {label}] card vs CPU, 64x96 T=4 ViT 56x70: losses card "
           f"{float(got['loss_0']):.6f}/{float(got['loss']):.6f}, errors {errs}")
     return errs
@@ -2213,6 +2332,86 @@ def write_script_tree(root, n_frames=SCRIPT_FRAMES, h=512, w=640):
     return data, splits
 
 
+def check_reload(label, trainer, folder, train_args):
+    """``folder`` (a ``weights_last``) holds the eight components, the
+    metadata and ``adam.msgpack``, and a fresh `Trainer` on the card at
+    ``train_args`` loads every component of it bit for bit as ``trainer``
+    holds it.  Returns the folder's bytes and the load's seconds."""
+    from endodav_tpu_torch.options import EndoDAVOptions
+    from endodav_tpu_torch.train.trainer import Trainer
+
+    names = sorted(trainer.mods)
+    files = sorted(os.listdir(folder))
+    require(files == sorted([f"{n}.msgpack" for n in names]
+                            + ["adam.msgpack", "depth_model.msgpack.meta.json"]),
+            f"{label}: weights_last holds {files}")
+    nbytes = sum(os.path.getsize(os.path.join(folder, f)) for f in files)
+    t0 = time.perf_counter()
+    fresh = own_policy("Trainer", Trainer, EndoDAVOptions().parse(
+        [*train_args, "--load_weights_folder", folder, "--models_to_load", *names]))
+    load_s = time.perf_counter() - t0
+    for name in names:
+        a, b = trainer.mods[name].state_dict(), fresh.mods[name].state_dict()
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        require(next(iter(b.values())).is_cuda and not differ,
+                f"{label}: {name} loaded from weights_last differs in {differ[:4]}")
+    return nbytes, load_s
+
+
+@contextlib.contextmanager
+def instrumented_trainer(device, watch=()):
+    """`Trainer`'s `train_one_batch`, `val`, `run_epoch_eval` and `save_model`
+    wrapped for the block: each step's losses and ms (synchronised), each
+    val score and ms, the epoch evals' and the checkpoints' seconds; and,
+    before the first step, copies of the depth model's parameters named in
+    ``watch``.  Yields the record."""
+    from endodav_tpu_torch.train.trainer import Trainer
+
+    rec = {"steps": [], "vals": [], "val_ms": [], "evals": [], "saves": [], "before": {}}
+    real = {k: getattr(Trainer, k)
+            for k in ("train_one_batch", "val", "run_epoch_eval", "save_model")}
+
+    def train_one_batch(self, batch):
+        if not rec["steps"]:
+            params = dict(self.mods["depth_model"].named_parameters())
+            rec["before"] = {n: params[n].detach().clone() for n in watch}
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        scalars = real["train_one_batch"](self, batch)
+        rec["steps"].append({"loss": float(scalars["loss"]),
+                             "loss_0": float(scalars["loss_0"])})
+        torch.cuda.synchronize(device)
+        rec["steps"][-1]["ms"] = (time.perf_counter() - t) * 1e3
+        return scalars
+
+    def val(self):
+        t = time.perf_counter()
+        rec["vals"].append(real["val"](self))  # a float: the card has finished
+        rec["val_ms"].append((time.perf_counter() - t) * 1e3)
+        return rec["vals"][-1]
+
+    def run_epoch_eval(self):
+        t = time.perf_counter()
+        out = real["run_epoch_eval"](self)
+        rec["evals"].append(time.perf_counter() - t)
+        return out
+
+    def save_model(self, mode="epoch"):
+        t = time.perf_counter()
+        folder = real["save_model"](self, mode)
+        rec["saves"].append(time.perf_counter() - t)
+        return folder
+
+    for k, fn in {"train_one_batch": train_one_batch, "val": val,
+                  "run_epoch_eval": run_epoch_eval, "save_model": save_model}.items():
+        setattr(Trainer, k, fn)
+    try:
+        yield rec
+    finally:
+        for k, fn in real.items():
+            setattr(Trainer, k, fn)
+
+
 def run_training_script(device, root):
     """`scripts/train_video.sh`'s two commands on the card: the training
     CLI's `main` with the script's flags exactly (`SCRIPT_TRAIN_FLAGS`) and
@@ -2231,52 +2430,17 @@ def run_training_script(device, root):
     from endodav_tpu_torch.data.scared import ScaredVideos
     from endodav_tpu_torch.eval.metrics_device import temporal_metrics_sequence
     from endodav_tpu_torch.options import EndoDAVOptions
-    from endodav_tpu_torch.train.trainer import Trainer
 
     t0 = time.perf_counter()
     data, splits = write_script_tree(root)
     print(f"[training script] synthetic SCARED tree with ground truth written in "
           f"{time.perf_counter() - t0:.1f} s")
     log_dir = os.path.join(root, "log")
-    steps, vals, evals, val_ms, saves = [], [], [], [], []
-    real = {k: getattr(Trainer, k)
-            for k in ("train_one_batch", "val", "run_epoch_eval", "save_model")}
-
-    def train_one_batch(self, batch):
-        torch.cuda.synchronize(device)
-        t = time.perf_counter()
-        scalars = real["train_one_batch"](self, batch)
-        steps.append({"loss": float(scalars["loss"]), "loss_0": float(scalars["loss_0"])})
-        torch.cuda.synchronize(device)
-        steps[-1]["ms"] = (time.perf_counter() - t) * 1e3
-        return scalars
-
-    def val(self):
-        t = time.perf_counter()
-        vals.append(real["val"](self))  # a float: the card has finished
-        val_ms.append((time.perf_counter() - t) * 1e3)
-        return vals[-1]
-
-    def run_epoch_eval(self):
-        t = time.perf_counter()
-        out = real["run_epoch_eval"](self)
-        evals.append(time.perf_counter() - t)
-        return out
-
-    def save_model(self, mode="epoch"):
-        t = time.perf_counter()
-        folder = real["save_model"](self, mode)
-        saves.append(time.perf_counter() - t)
-        return folder
-
     counters = _kernel_counters()
     train_args = [*SCRIPT_TRAIN_FLAGS, "--data_path", data, "--log_dir", log_dir,
                   "--num_epochs", "1", "--log_frequency", "2"]
     with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
-        for k, fn in {"train_one_batch": train_one_batch, "val": val,
-                      "run_epoch_eval": run_epoch_eval, "save_model": save_model}.items():
-            setattr(Trainer, k, fn)
-        try:
+        with instrumented_trainer(device) as rec:
             for fn in counters.values():
                 fn.launches = 0
             torch.cuda.reset_peak_memory_stats(device)
@@ -2284,9 +2448,8 @@ def run_training_script(device, root):
             trainer = own_policy("train_end_to_end_video", train_end_to_end_video.main,
                                  train_args)
             train_s = time.perf_counter() - t0
-        finally:
-            for k, fn in real.items():
-                setattr(Trainer, k, fn)
+        steps, vals, val_ms = rec["steps"], rec["vals"], rec["val_ms"]
+        evals, saves = rec["evals"], rec["saves"]
         launches = {k: fn.launches for k, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated(device)
         print(f"[training script] train_end_to_end_video {' '.join(train_args)}: "
@@ -2308,26 +2471,10 @@ def run_training_script(device, root):
         require(launches == expect, f"training script: launches {launches}, expected {expect}")
 
         folder = os.path.join(log_dir, "endodav", "models", "weights_last")
-        names = sorted(trainer.mods)
-        files = sorted(os.listdir(folder))
-        want = sorted([f"{n}.msgpack" for n in names]
-                      + ["adam.msgpack", "depth_model.msgpack.meta.json"])
-        require(files == want, f"training script: weights_last holds {files}")
         results = open(os.path.join(log_dir, "endodav", "models", "results.txt")).read()
         print(f"[training script] results.txt: {results.strip()}")
         require(results.count("Epoch 01:") == 1, "training script: no results line")
-
-        nbytes = sum(os.path.getsize(os.path.join(folder, f)) for f in files)
-        t0 = time.perf_counter()
-        fresh = own_policy("Trainer", Trainer, EndoDAVOptions().parse(
-            [*train_args, "--load_weights_folder", folder, "--models_to_load", *names]))
-        load_s = time.perf_counter() - t0
-        for name in names:
-            a, b = trainer.mods[name].state_dict(), fresh.mods[name].state_dict()
-            differ = [k for k in a if not torch.equal(a[k], b[k])]
-            require(next(iter(b.values())).is_cuda and not differ,
-                    f"training script: {name} loaded from weights_last differs in {differ[:4]}")
-        del fresh
+        nbytes, load_s = check_reload("training script", trainer, folder, train_args)
 
         eval_opt = EndoDAVOptions().parse([*SCRIPT_EVAL_FLAGS, "--data_path", data,
                                            "--load_weights_folder", folder])
@@ -2370,6 +2517,363 @@ def run_training_script(device, root):
             "val_ms": val_ms, "train_s": train_s, "eval_s": evals[0], "save_s": saves,
             "folder_bytes": nbytes, "load_s": load_s, "cli_s": cli_s, "peak_bytes": peak,
             "tae_err": err}
+
+
+# scripts/train_video_dac1.sh:9-12 and :14-16, the training and the eval
+# command's flags exactly (EndoDAC vits with the trainer's default dvlora,
+# no conv head, batch 16, T=1); --visualize_depth writes nothing in either
+# command, as in JAX
+DAC1_TRAIN_FLAGS = ["--model_type", "endodac", "--num_workers", "8", "--disable_conv_head",
+                    "--batch_size", "16", "--T", "1", "--encoder", "vits", "--visualize_depth"]
+DAC1_EVAL_FLAGS = ["--model_type", "endodac", "--eval_split", "scared_video", "--eval_mono",
+                   "--visualize_depth"]
+# the tree's sequences of 20 frames: the endovis train split of all four
+# gives 77 clips of T=1, 4 batches of 16; the two with ground truth are the
+# val and test sequences
+DAC1_FRAMES = 20
+# scripts/train_video_dac.sh:7-9: EndoDAC vitb, dvlora, batch 8 (its --T -1
+# yields no clips; the phase trains at --T 1)
+DAC_VITB_FLAGS = ["--model_type", "endodac", "--encoder", "vitb", "--batch_size", "8",
+                  "--lora_type", "dvlora", "--warm_up_step", "20000"]
+# launches a step with a single-frame depth model: the EndoDAV step's warps
+# and splats; EndoDAC's ViT runs once on the batch's frames (a flash
+# attention a block), no motion module; AF-SfM has no ViT
+SINGLE_STEP_LAUNCHES = dict(STEP_LAUNCHES, temporal_attention=0)
+AFSFM_STEP_LAUNCHES = dict(SINGLE_STEP_LAUNCHES, flash_attention=0)
+DEPTH_STEPS, BF16_STEPS = 2, 5
+# bf16 training's losses, the card against the CPU (a small step) and the
+# warp kernels against their plain versions (a full-width step's forward):
+# tests/test_torch_train_bf16.py's tolerance against JAX's bf16 losses.
+# bf16 against f32 is not bounded by it: JAX's bf16 step builds its pixel
+# grids in bf16, whose step is 2 px past x = 256, and its own bf16 loss
+# moves 2.5e-2 (phase 0) and 5.5e-3 (main) from its f32 at 64x320
+# (tools/bf16_train_gap.py); the card's gap is reported
+BF16_LOSS_RTOL = 2e-3
+
+
+def write_endovis_split(splits, train, val):
+    """``<splits>/endovis/{train,val}_files.txt`` of whole sequences, the
+    lines the video trainer reads (the repo's own endovis lists name single
+    frames, which no video trainer can read)."""
+    os.makedirs(os.path.join(splits, "endovis"), exist_ok=True)
+    for name, seqs in (("train", train), ("val", val)):
+        with open(os.path.join(splits, "endovis", f"{name}_files.txt"), "w") as f:
+            f.write("\n".join(seqs) + "\n")
+
+
+def window_eval_launches(model, sequences, chunk_windows):
+    """The epoch eval's launches with a single-frame model on the window
+    path (`Trainer.eval_forward`: the model on a chunk of windows, its
+    frames flattened): one ViT forward, a flash attention a block, a chunk."""
+    from endodav_tpu_torch.eval.video_inference import window_indices
+    from endodav_tpu_torch.models.vit import VIT_CONFIGS
+
+    chunks = sum(-(-len(window_indices(len(s["colors"]))) // chunk_windows) for s in sequences)
+    return {"flash_attention": VIT_CONFIGS[model.backbone_size]["depth"] * chunks}
+
+
+def run_dac1_script(device, root):
+    """`scripts/train_video_dac1.sh`'s two commands on the card: the training
+    CLI's `main` with the script's flags exactly (`DAC1_TRAIN_FLAGS`) for
+    one epoch of 4 steps, a log (scalars, panels and `val`) every 2
+    batches, on a synthetic tree with an ``endovis`` split of its own; then
+    `cli/evaluate_depth_video_pose.evaluate` on ``weights_last`` with the
+    eval command's flags.  Checks: every step's losses finite; each kernel's
+    launches (SINGLE_STEP_LAUNCHES a step, VAL_LAUNCHES a `val`, the epoch
+    eval's flash attentions on the window path); the LoRA A and B of a ViT
+    block (``spatial_ab``) stepped by Adam every step and B moved, a frozen
+    ViT weight neither; a fresh
+    `Trainer` loads every component of ``weights_last`` bit for bit; the
+    eval command's flags refuse ``weights_last`` (they build the conv head
+    the training left out, as JAX's do), and with ``--disable_conv_head``
+    added the eval CLI's metrics are finite and its launches those of
+    single-frame batches.  Returns the launches and the times."""
+    from endodav_tpu_torch.cli import evaluate_depth_video_pose, train_end_to_end_video
+    from endodav_tpu_torch.options import EndoDAVOptions
+
+    t0 = time.perf_counter()
+    data, splits = write_script_tree(root, n_frames=DAC1_FRAMES)
+    with_gt = [n for n, gt in SCRIPT_SEQUENCES if gt]
+    write_endovis_split(splits, [n for n, _ in SCRIPT_SEQUENCES], with_gt)
+    print(f"[train_video_dac1.sh] synthetic tree written in {time.perf_counter() - t0:.1f} s")
+    log_dir = os.path.join(root, "log")
+    counters = _kernel_counters()
+    train_args = [*DAC1_TRAIN_FLAGS, "--data_path", data, "--log_dir", log_dir,
+                  "--num_epochs", "1", "--log_frequency", "2"]
+    watch = ("pretrained.blocks.5.mlp.fc1.lora_A", "pretrained.blocks.5.mlp.fc1.lora_B",
+             "pretrained.blocks.0.attn.qkv.weight")
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        with instrumented_trainer(device, watch) as rec:
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            trainer = own_policy("train_end_to_end_video", train_end_to_end_video.main,
+                                 train_args)
+            train_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated(device)
+        steps, vals = rec["steps"], rec["vals"]
+        print(f"[train_video_dac1.sh] train_end_to_end_video {' '.join(train_args)}: "
+              f"{len(steps)} steps, losses {[(round(s['loss'], 6), round(s['loss_0'], 6)) for s in steps]}, "
+              f"step ms {[round(s['ms'], 1) for s in steps]}, val scores {vals}, launches "
+              f"{launches}")
+        require(len(steps) == len(trainer.train_loader) == 4,
+                f"train_video_dac1.sh: {len(steps)} steps, expected the epoch's 4")
+        require(all(np.isfinite([s["loss"], s["loss_0"]]).all() for s in steps),
+                "train_video_dac1.sh: a step's loss is not finite")
+        require(len(vals) == 2 and np.isfinite(vals).all(), f"train_video_dac1.sh: val {vals}")
+        n_seq = len(with_gt)
+        serving = window_eval_launches(trainer.mods["depth_model"],
+                                       [{"colors": range(DAC1_FRAMES)}] * n_seq,
+                                       trainer.opt.chunk_windows)
+        expect = {k: n * len(steps) + VAL_LAUNCHES.get(k, 0) * len(vals) + serving.get(k, 0)
+                  for k, n in SINGLE_STEP_LAUNCHES.items()}
+        require(launches == expect, f"train_video_dac1.sh: launches {launches}, expected {expect}")
+        # the spatial_ab group trained every step: Adam stepped the LoRA A and
+        # B each time, and B moved (A's gradient is B's size, ~1e-16 at the
+        # zero-initialised B, so A's first steps fall below its f32 ulp); the
+        # frozen weight neither stepped nor moved
+        params = dict(trainer.mods["depth_model"].named_parameters())
+        moved = {n: not torch.equal(rec["before"][n], params[n].detach()) for n in watch}
+        stepped = {n: int(trainer.opt_main.state_of(params[n]).get("step", 0)) for n in watch}
+        print(f"[train_video_dac1.sh] over the epoch: moved {moved}, Adam steps {stepped}")
+        require(stepped[watch[0]] == stepped[watch[1]] == len(steps) and moved[watch[1]]
+                and not stepped[watch[2]] and not moved[watch[2]],
+                f"train_video_dac1.sh: LoRA A/B should step and the frozen weight not: "
+                f"moved {moved}, stepped {stepped}")
+
+        folder = os.path.join(log_dir, "endodac", "models", "weights_last")
+        check_reload("train_video_dac1.sh", trainer, folder, train_args)
+
+        # the script's eval command builds EndoDAC with the conv head its
+        # training left out, and the folder has no conv_depth weights: the
+        # load refuses it, as flax's does in JAX; the model it trained
+        # serves with --disable_conv_head added
+        exact = EndoDAVOptions().parse([*DAC1_EVAL_FLAGS, "--data_path", data,
+                                        "--load_weights_folder", folder])
+        try:
+            evaluate_depth_video_pose.evaluate(exact)
+        except ValueError as e:
+            require("conv_depth_1" in str(e), f"train_video_dac1.sh eval command: {e}")
+            print(f"[train_video_dac1.sh] the script's eval flags refuse weights_last, as "
+                  f"JAX's: {e}")
+        else:
+            require(False, "train_video_dac1.sh eval command: loaded a folder without "
+                           "conv_depth weights into a conv head")
+        eval_opt = EndoDAVOptions().parse([*DAC1_EVAL_FLAGS, "--disable_conv_head",
+                                           "--data_path", data, "--load_weights_folder", folder])
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = own_policy("build_depth_model", evaluate_depth_video_pose.evaluate, eval_opt)
+        cli_s = time.perf_counter() - t0
+        cli_launches = {k: fn.launches for k, fn in counters.items()}
+        cli_serving, _ = expected_serving_launches(
+            eval_opt, types.SimpleNamespace(model=trainer.mods["depth_model"]),
+            [{"colors": range(DAC1_FRAMES)}] * n_seq)
+        cli_expect = {k: cli_serving.get(k, 0) for k in counters}
+        require(cli_launches == cli_expect,
+                f"train_video_dac1.sh eval CLI: launches {cli_launches}, expected {cli_expect}")
+        depth = result["depth"]
+        metrics = np.concatenate([depth["mean_errors"], depth["mean_temporal"]])
+        pose = [(r["ate_mean"], r["re_mean"]) for r in result["pose"]]
+        print(f"[train_video_dac1.sh] evaluate_depth_video_pose {' '.join(DAC1_EVAL_FLAGS)}: "
+              f"depth and TAE/TAS {metrics.tolist()}, (ATE, RE) {pose}")
+        require(np.isfinite(metrics).all() and np.isfinite(pose).all() and len(pose) == n_seq,
+                "train_video_dac1.sh eval CLI: metrics not finite")
+    ms = statistics.median(s["ms"] for s in steps[1:])
+    print(f"[train_video_dac1.sh] {ms:.1f} ms/step (median of steps 2-{len(steps)}), training "
+          f"CLI {train_s:.1f} s with the epoch eval {rec['evals'][0]:.1f} s, eval CLI "
+          f"{cli_s:.1f} s, peak memory {peak / 2 ** 30:.2f} GiB ({card_line()})")
+    total = {k: launches[k] + cli_launches[k] for k in launches}
+    return {"launches": total, "ms_per_step": ms, "step_ms": [s["ms"] for s in steps],
+            "train_s": train_s, "eval_s": rec["evals"][0], "cli_s": cli_s, "peak_bytes": peak}
+
+
+def train_steps(device, trainer, label, batches, expect, watch=(), peak_from=2):
+    """`train_one_batch` on each of ``batches``, timed (synchronised): finite
+    losses and every kernel's launches ``expect`` a step; the depth model's
+    state entries named in ``watch`` before and after.  Returns the losses,
+    ms, launches, the peak memory from step ``peak_from`` on and whether
+    each watched entry moved."""
+    counters = _kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    state = trainer.mods["depth_model"].state_dict()
+    before = {n: state[n].detach().clone() for n in watch}
+    losses, times = [], []
+    for step, batch in enumerate(batches, 1):
+        for fn in counters.values():
+            fn.launches = 0
+        if step == peak_from:
+            torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        scalars = trainer.train_one_batch(batch)
+        losses.append((float(scalars["loss"]), float(scalars["loss_0"])))  # waits for the step
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"[{label}] step {step}: loss {losses[-1][0]:.6f} loss_0 {losses[-1][1]:.6f} "
+              f"{times[-1]:.1f} ms launches {launches}")
+        require(np.isfinite(losses[-1]).all(), f"{label} step {step}: loss not finite")
+        require(launches == expect, f"{label} step {step}: launches {launches}, expected {expect}")
+        for k in totals:
+            totals[k] += launches[k]
+    peak = torch.cuda.max_memory_allocated(device)
+    state = trainer.mods["depth_model"].state_dict()
+    moved = {n: not torch.equal(before[n], state[n]) for n in watch}
+    return {"losses": losses, "step_ms": times, "launches": totals, "peak_bytes": peak,
+            "moved": moved}
+
+
+def depth_trainer(device, root, splits, flags, *extra):
+    """A full-width `Trainer` on the card over the synthetic tree, reading
+    the split directory ``splits``, and its first batches."""
+    from endodav_tpu_torch.options import EndoDAVOptions
+    from endodav_tpu_torch.train.trainer import Trainer
+
+    opt = EndoDAVOptions().parse([*flags, "--data_path", root, "--num_workers", "2",
+                                  "--seed", str(SEED), *extra])
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        return own_policy("Trainer", Trainer, opt, device)
+
+
+def first_batches(trainer, n):
+    it = iter(trainer.train_loader)
+    batches = [next(it) for _ in range(n)]
+    it.close()
+    return batches
+
+
+def run_single_frame_training(device, root, splits):
+    """The other depth models at full width (256x320) on the synthetic tree
+    read through an ``endovis`` split: `scripts/train_video_dac.sh`'s model
+    (EndoDAC vitb, dvlora, batch 8), whose own ``--T -1`` must raise JAX's
+    error, for DEPTH_STEPS steps at --T 1 (LoRA B moves, a frozen weight
+    not); AF-SfM (batch 8, T=1) for DEPTH_STEPS steps, whose depth
+    weights and running statistics must not move (every one ``frozen``;
+    JAX drops the BatchNorm statistics of the depth model); and each in
+    bf16 for DEPTH_STEPS steps.  Returns launches and times."""
+    out, launches = {}, None
+    try:
+        depth_trainer(device, root, splits, [*DAC_VITB_FLAGS, "--T", "-1"])
+    except ValueError as e:
+        require("the default -1 yields no clips" in str(e),
+                f"train_video_dac.sh --T -1: raised {e}")
+        print(f"[train vitb] train_video_dac.sh's --T -1 raises, as JAX: {e}")
+    else:
+        require(False, "train_video_dac.sh --T -1: no error")
+    watch_dac = ("pretrained.blocks.5.mlp.fc1.lora_B", "pretrained.blocks.0.attn.qkv.weight")
+    afsfm = ["--model_type", "afsfm", "--batch_size", "8"]
+    for label, flags, expect, dtype in (
+            ("train vitb", DAC_VITB_FLAGS, SINGLE_STEP_LAUNCHES, "float32"),
+            ("train vitb bf16", DAC_VITB_FLAGS, SINGLE_STEP_LAUNCHES, "bfloat16"),
+            ("train afsfm", afsfm, AFSFM_STEP_LAUNCHES, "float32"),
+            ("train afsfm bf16", afsfm, AFSFM_STEP_LAUNCHES, "bfloat16")):
+        trainer = depth_trainer(device, root, splits, flags, "--T", "1",
+                                "--compute_dtype", dtype)
+        model = trainer.mods["depth_model"]
+        watch = (watch_dac if model.model_type == "endodac"
+                 else tuple(model.state_dict()))  # AF-SfM: every weight and statistic
+        r = train_steps(device, trainer, label, first_batches(trainer, DEPTH_STEPS), expect,
+                        watch)
+        if model.model_type == "endodac":
+            require(r["moved"][watch[0]] and not r["moved"][watch[1]],
+                    f"{label}: LoRA B should move and the frozen weight not: {r['moved']}")
+        else:
+            moved = [n for n, m in r["moved"].items() if m]
+            require(not moved, f"{label}: AF-SfM depth state moved: {moved[:4]}")
+            require(all(p.grad is None for p in model.parameters()),
+                    f"{label}: an AF-SfM depth weight got a gradient")
+        print(f"[{label}] {' '.join(flags)} --T 1 --compute_dtype {dtype}: step ms "
+              f"{[round(t, 1) for t in r['step_ms']]}, peak memory of steps 2-{DEPTH_STEPS} "
+              f"{r['peak_bytes'] / 2 ** 30:.2f} GiB ({card_line()})")
+        launches = r["launches"] if launches is None else {
+            k: launches[k] + n for k, n in r["launches"].items()}
+        out[label] = r
+        del trainer
+    return out, launches
+
+
+def step_losses(trainer, batch):
+    """Step 1's two losses of ``trainer`` on the device batch ``batch``
+    without a backward or an update: phase 0 and the main phase, the
+    BatchNorm statistics they record dropped."""
+    from endodav_tpu_torch.models.resnet import discard_batch_stats
+    from endodav_tpu_torch.train import losses as L
+    from endodav_tpu_torch.train import optim as O
+
+    cfg = trainer.loss_cfg
+    scales, hw = cfg["scales"], (cfg["height"], cfg["width"])
+    gates = O.schedule_gates(trainer.step, trainer.sched_cfg, trainer.dash_phase2)
+    with torch.no_grad():
+        out = L.forward_flow_nets(trainer.mods, batch, scales, hw, train_position=True,
+                                  train_transform=False)
+        loss_0 = float(L.position_phase_loss(out, batch, scales, cfg["position_smoothness"],
+                                             not cfg["no_ssim"]))
+        loss = float(L.main_phase(trainer.mods, batch, cfg,
+                                  temporal_weight=gates["tune_temporal"])[0])
+    for m in trainer.mods.values():
+        discard_batch_stats(m)
+    return loss_0, loss
+
+
+def run_bf16_training(device, root):
+    """`scripts/train_video.sh`'s training (ssb) with ``--compute_dtype
+    bfloat16`` beside float32 on the same seed weights and the same
+    BF16_STEPS batches: step 1's losses with the warp kernels against the
+    plain versions (ENDODAV_NO_WARP_MM=1) on the same bf16 inputs, within
+    BF16_LOSS_RTOL; every kernel's launches (STEP_LAUNCHES) each step, the
+    flash attentions and temporal attentions on bf16 tensors; ms/step
+    (steps 2 on) and peak memory of each, and step 1's bf16 losses against
+    the f32 ones (reported: see BF16_LOSS_RTOL)."""
+    from endodav_tpu_torch.eval.engine import splits_dir
+    from endodav_tpu_torch.kernels import flash_attention, temporal_attention
+
+    legs = {}
+    batches = None
+    for dtype in ("float32", "bfloat16"):
+        trainer = depth_trainer(device, root, splits_dir(), SSB_TRAIN_FLAGS,
+                                "--compute_dtype", dtype)
+        if batches is None:
+            batches = first_batches(trainer, BF16_STEPS)
+        first = trainer.device_batch(batches[0])
+        kernels = step_losses(trainer, first)
+        with _env({"ENDODAV_NO_WARP_MM": "1"}):
+            plain = step_losses(trainer, first)
+        rel = [abs(a - b) / abs(b) for a, b in zip(kernels, plain)]
+        print(f"[train ssb {dtype}] step 1's (loss_0, loss) with the warp kernels {kernels}, "
+              f"with their plain versions {plain}: relative {rel}")
+        require(max(rel) <= (BF16_LOSS_RTOL if dtype == "bfloat16" else STEP_LOSS_RTOL),
+                f"train ssb {dtype}: the warp kernels move step 1's losses by {rel}")
+        del first
+        seen = []
+        real = {m: m._launch for m in (flash_attention, temporal_attention)}
+        for m, fn in real.items():
+            m._launch = lambda *a, fn=fn: seen.append(a[0].dtype) or fn(*a)
+        try:
+            legs[dtype] = train_steps(device, trainer, f"train ssb {dtype}", batches,
+                                      STEP_LAUNCHES)
+        finally:
+            for m, fn in real.items():
+                m._launch = fn
+        want = torch.float32 if dtype == "float32" else torch.bfloat16
+        require(seen and set(seen) == {want},
+                f"train ssb {dtype}: attention kernels launched on {set(seen)}")
+        legs[dtype]["ms_per_step"] = statistics.median(legs[dtype]["step_ms"][1:])
+        legs[dtype]["warps_vs_plain"] = rel
+        del trainer
+    (l32, l032), (l16, l016) = legs["float32"]["losses"][0], legs["bfloat16"]["losses"][0]
+    rel = (abs(l16 - l32) / abs(l32), abs(l016 - l032) / abs(l032))
+    print(f"[train bf16] {' '.join(SSB_TRAIN_FLAGS)}: step 1 on the same weights and batch, "
+          f"loss f32 {l32:.6f} bf16 {l16:.6f}, loss_0 f32 {l032:.6f} bf16 {l016:.6f}, relative "
+          f"{rel}; ms/step (median of steps 2-{BF16_STEPS}) f32 "
+          f"{legs['float32']['ms_per_step']:.1f} bf16 {legs['bfloat16']['ms_per_step']:.1f}; "
+          f"peak memory f32 {legs['float32']['peak_bytes'] / 2 ** 30:.2f} GiB bf16 "
+          f"{legs['bfloat16']['peak_bytes'] / 2 ** 30:.2f} GiB ({card_line()})")
+    legs["rel"] = rel
+    return legs
 
 
 # kernel-name fragments -> the categories of the profiles' breakdowns
@@ -2510,6 +3014,7 @@ def main() -> int:
         tattn_rows, tattn_grad_err = check_temporal_attention(device)
         int8_row = check_int8(device)
         warp_rows = check_warps(device)
+        warp_bf16_err = check_warps_bf16(device)
         check_warp_branches(device)
         cp_rows = check_warps_cp(device)
         splat_row = check_splat(device)
@@ -2628,12 +3133,25 @@ def main() -> int:
         print(f"[train] synthetic SCARED tree written in {time.perf_counter() - t0:.1f} s")
         check_small_step(device, root)
         check_small_step(device, root, env={"ENDODAV_WARP_CP": "1"})
+        check_small_step(device, root, dtype="bfloat16")
         trace_dir = args[args.index("--profile-step") + 1] if "--profile-step" in args else None
         train = run_training(device, root, trace_dir=trace_dir)
         dash_errs = check_dash_boundary(device, root)
         ssb_train = run_ssb_training(device, root)
+        # the other depth models read an endovis split of the tree's sequences
+        from endodav_tpu_torch.data.readers import readlines
+
+        splits = os.path.join(root, "splits_endovis")
+        write_endovis_split(splits, readlines(SPLIT), readlines(VAL_SPLIT))
+        os.makedirs(os.path.join(splits, "scared_video"))
+        with open(os.path.join(splits, "scared_video", "val_files.txt"), "w") as f:
+            f.write("\n".join(readlines(VAL_SPLIT)) + "\n")
+        single, single_launches = run_single_frame_training(device, root, splits)
+        bf16_train = run_bf16_training(device, root)
     with tempfile.TemporaryDirectory(prefix="training_script_", dir=os.getcwd()) as root:
         script = run_training_script(device, root)
+    with tempfile.TemporaryDirectory(prefix="training_dac1_", dir=os.getcwd()) as root:
+        dac1 = run_dac1_script(device, root)
 
     def entry(name, source, replaces, launches, max_abs_err, head, shape, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2665,7 +3183,13 @@ def main() -> int:
     depth = next(r for r in warp_rows if r["call"] == "depth warps")
     colour_cp = next(r for r in cp_rows if r["call"] == "colour synthesis")
     consistency_cp = next(r for r in cp_rows if r["call"] == "flow_consistency")
-    trained = {k: n + ssb_train["launches"][k] + script["launches"][k]
+    # bf16 training: the ssb steps and the single-frame models' bf16 steps
+    bf16_trained = {k: n + sum(r["launches"][k] for label, r in single.items()
+                               if label.endswith("bf16"))
+                    for k, n in bf16_train["bfloat16"]["launches"].items()}
+    trained = {k: (n + ssb_train["launches"][k] + script["launches"][k] + dac1["launches"][k]
+                   + single_launches[k] + bf16_train["float32"]["launches"][k]
+                   + bf16_train["bfloat16"]["launches"][k])
                for k, n in train["launches"].items()}
     wide = sum(r["wide_temporal"] for r in runs + streams + bf16_legs + [baseline])
     wide_bf16 = sum(r["wide_temporal"] for r in bf16_legs)
@@ -2675,11 +3199,15 @@ def main() -> int:
         entry("flash_attention", "endodav_tpu_torch/csrc/flash_attention.cu",
               "endodav_tpu/kernels/flash_attention.py:43",
               served("flash_attention") + trained["flash_attention"],
-              max(f32(flash_rows), flash_grad_err),
+              max(f32(flash_rows), flash_grad_err[torch.float32]),
               head_of(flash_rows, "B=64 N=1703 H=6 Dh=64"), "B=64 N=1703 H=6 Dh=64",
-              bf16_launches=at_bf16("flash_attention"), bf16_max_abs_err=bf16_err(flash_rows),
+              bf16_launches=at_bf16("flash_attention") + bf16_trained["flash_attention"],
+              bf16_max_abs_err=max(bf16_err(flash_rows), flash_grad_err[torch.bfloat16]),
+              bf16_train_launches=bf16_trained["flash_attention"],
               single_frame=single_frame_shapes(flash_rows, ("B=8 N=321 H=6 Dh=64",
-                                                            "B=8 N=321 H=12 Dh=64"))),
+                                                            "B=8 N=321 H=12 Dh=64")),
+              training=single_frame_shapes(flash_rows, ("B=16 N=321 H=6 Dh=64",
+                                                        "B=8 N=321 H=12 Dh=64"))),
         # one route and one counter for both TPU kernels; the C >= 512
         # share comes from the models' widths (the counter's total is
         # checked against the configuration in each run)
@@ -2697,10 +3225,14 @@ def main() -> int:
         entry("temporal_attention", "endodav_tpu_torch/csrc/temporal_attention.cu",
               "endodav_tpu/kernels/temporal_attention.py:31",
               served("temporal_attention") + trained["temporal_attention"],
-              max(f32(tattn_rows), tattn_grad_err),
+              max(f32(tattn_rows), tattn_grad_err[torch.float32]),
               head_of(tattn_rows, "rows=1280 T=16 H=8 Dh=8"), "rows=1280 T=16 H=8 Dh=8",
-              bf16_launches=at_bf16("temporal_attention"),
-              bf16_max_abs_err=bf16_err(tattn_rows)),
+              bf16_launches=at_bf16("temporal_attention") + bf16_trained["temporal_attention"],
+              bf16_max_abs_err=max(bf16_err(tattn_rows), tattn_grad_err[torch.bfloat16]),
+              bf16_train_launches=bf16_trained["temporal_attention"],
+              training=single_frame_shapes(tattn_rows, ("rows=1280 T=16 H=8 Dh=8",
+                                                        "rows=320 T=16 H=8 Dh=24",
+                                                        "rows=80 T=16 H=8 Dh=48"))),
         entry("fused_mlp", "endodav_tpu_torch/csrc/fused_mlp.cu",
               "endodav_tpu/kernels/fused_mlp.py:73", served("fused_mlp"), f32(mlp_rows),
               head_of(mlp_rows, "rows=54496 384->1536->384"), "rows=54496 384->1536->384",
@@ -2746,6 +3278,9 @@ def main() -> int:
     require(not missing, f"kernels of the main paths never launched: {missing}")
     no_bf16 = [k["name"] for k in kernels[:6] if not k["bf16_launches"]]
     require(not no_bf16, f"serving kernels never launched at bf16: {no_bf16}")
+    no_bf16_train = [k["name"] for k in kernels if "bf16_train_launches" in k
+                     and not k["bf16_train_launches"]]
+    require(not no_bf16_train, f"kernels never launched in bf16 training: {no_bf16_train}")
     worst = max((r for r in tile_rows), key=lambda r: r["tile"])
     print(f"[summary] tile f32 error: at most {worst['tile']:.3e} (K={worst['k']} "
           f"{worst['dist']}); one f32 product up to "
@@ -2766,6 +3301,20 @@ def main() -> int:
           f"{len(script['step_ms'])} steps): {script['ms_per_step']:.1f} ms/step, training CLI "
           f"{script['train_s']:.1f} s (epoch eval {script['eval_s']:.1f} s), eval CLI "
           f"{script['cli_s']:.1f} s, peak {script['peak_bytes'] / 2 ** 30:.2f} GiB ({card})")
+    print(f"[summary] train_video_dac1.sh (EndoDAC vits, one epoch of "
+          f"{len(dac1['step_ms'])} steps of 16 frames): {dac1['ms_per_step']:.1f} ms/step, "
+          f"training CLI {dac1['train_s']:.1f} s (epoch eval {dac1['eval_s']:.1f} s), eval CLI "
+          f"{dac1['cli_s']:.1f} s, peak {dac1['peak_bytes'] / 2 ** 30:.2f} GiB; "
+          + "; ".join(f"{k} step ms {[round(t, 1) for t in r['step_ms']]} peak "
+                      f"{r['peak_bytes'] / 2 ** 30:.2f} GiB" for k, r in single.items())
+          + f" ({card})")
+    print(f"[summary] bf16 training (scripts/train_video.sh ssb): ms/step f32 "
+          f"{bf16_train['float32']['ms_per_step']:.1f} bf16 "
+          f"{bf16_train['bfloat16']['ms_per_step']:.1f}, peak f32 "
+          f"{bf16_train['float32']['peak_bytes'] / 2 ** 30:.2f} GiB bf16 "
+          f"{bf16_train['bfloat16']['peak_bytes'] / 2 ** 30:.2f} GiB, step-1 losses relative "
+          f"{bf16_train['rel']} (reported: JAX's bf16 grids, BF16_LOSS_RTOL); bf16-fed warps "
+          f"max |err| {warp_bf16_err:.3e} of max(1, the largest entry) ({card})")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

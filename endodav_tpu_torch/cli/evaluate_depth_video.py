@@ -34,6 +34,9 @@ def report(result) -> list[str]:
 
 
 def evaluate(opt):
+    if opt.visualize_depth and opt.load_weights_folder:
+        raise NotImplementedError("--visualize_depth (the depth images JAX's CLI writes under "
+                                  "<load_weights_folder>/eval) is not ported")
     filenames = readlines(os.path.join(engine.splits_dir(), opt.eval_split, "val_files.txt"))
     sequences = ScaredVideos(opt.data_path, filenames, pred_root=opt.pred_root)
     device = engine.resolve_device(opt)

@@ -5,7 +5,10 @@ Run as ``python -m endodav_tpu_torch.cli.train_end_to_end_video --data_path
 ``scripts/train_video.sh``: seeds Python's and numpy's generators with 314
 (`endodav_tpu/cli/train_end_to_end_video.py`), then `Trainer(opts).train()`
 writes ``<log_dir>/<model_type>/models/{opt.json, results.txt,
-weights_<epoch>, weights_last}``.
+weights_<epoch>, weights_last}``.  Every ``--model_type`` trains (endodav,
+endodac with ``--encoder`` vits or vitb, afsfm), in ``--compute_dtype``
+float32 or bfloat16; ``scripts/train_video_dac1.sh``'s command runs as it
+stands.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Port of `endodav_tpu/geometry/losses.py`: SSIM, the 0.85*SSIM + 0.15*L1
 reprojection loss, edge-aware smoothness, the residue-aware appearance
-smoothness, flow smoothness and local NCC.
+smoothness, flow smoothness, local NCC and the reverse Huber loss.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["abs_jax", "clip_jax", "ssim", "reprojection_loss", "smooth_loss", "smooth_bright",
-           "smooth_registration", "ncc"]
+           "smooth_registration", "ncc", "berhu"]
 
 
 def abs_jax(x: torch.Tensor) -> torch.Tensor:
@@ -102,3 +102,13 @@ def ncc(i, j, win: int = 5):
     i_var = i2_sum - 2 * u_i * i_sum + u_i * u_i * n
     j_var = j2_sum - 2 * u_j * j_sum + u_j * u_j * n
     return -(cross * cross / (i_var * j_var + 1e-5))
+
+
+def berhu(pred, target):
+    """Reverse Huber loss: |d| up to c = 0.2 max|d| (no gradient through c),
+    (d^2 + c^2) / 2c above it; the mean."""
+    diff = pred - target
+    abs_diff = abs_jax(diff)
+    c = 0.2 * abs_diff.max().detach()
+    l2 = (diff ** 2 + c ** 2) / (2.0 * c)
+    return torch.where(abs_diff <= c, abs_diff, l2).mean()

@@ -1,9 +1,15 @@
 """Differentiable camera geometry.
 
 Port of `endodav_tpu/geometry/transforms.py`: disparity to depth, SE(3)
-from axis-angle and translation, back-projection of a depth map and
-projection into a normalized `grid_sample` grid.  Pure functions of
-tensors; pixel grids are built on the input's device.
+from axis-angle and translation, back-projection of a depth map,
+projection into a normalized `grid_sample` grid and the rigid flow.  Pure
+functions of tensors; pixel grids are built on the input's device, in the
+dtype JAX builds them in (the depth's or the points').
+
+Mixed dtypes promote as in JAX: a bf16 depth or pose meets the f32
+intrinsics in a product that comes out f32 (`_matmul`; PyTorch's matmul
+refuses mixed dtypes, and JAX's ``einsum`` promotes).  Python scalars are
+weak in both, so ``disp_to_depth`` keeps a bf16 disparity in bf16.
 """
 
 from __future__ import annotations
@@ -12,7 +18,13 @@ import torch
 
 __all__ = ["disp_to_depth", "rot_from_axisangle", "translation_matrix",
            "transformation_from_parameters", "pixel_grid_homogeneous", "backproject_depth",
-           "project_3d"]
+           "project_3d", "rigid_flow"]
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the dtype JAX promotes the two to."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def disp_to_depth(disp, min_depth: float, max_depth: float):
@@ -77,7 +89,7 @@ def backproject_depth(depth: torch.Tensor, inv_K: torch.Tensor) -> torch.Tensor:
         depth = depth[..., 0]
     b, h, w = depth.shape
     pix = pixel_grid_homogeneous(h, w, depth.dtype, depth.device)
-    cam = depth.reshape(b, 1, -1) * (inv_K[:, :3, :3] @ pix)
+    cam = depth.reshape(b, 1, -1) * _matmul(inv_K[:, :3, :3], pix)
     return torch.cat([cam, torch.ones_like(cam[:, :1])], dim=1)
 
 
@@ -85,9 +97,22 @@ def project_3d(points, K, T, height: int, width: int, eps: float = 1e-7):
     """Project camera points [B, 4, H*W] through K @ T.  Returns (grid
     [B, H, W, 2] normalized (x, y), src_depths [B, 1, H*W])."""
     b = points.shape[0]
-    cam = (K @ T)[:, :3, :] @ points
+    cam = _matmul(_matmul(K, T)[:, :3, :], points)
     z = cam[:, 2:3, :]
     xy = (cam[:, :2, :] / (z + eps)).reshape(b, 2, height, width)
     gx = (xy[:, 0] / (width - 1) - 0.5) * 2.0
     gy = (xy[:, 1] / (height - 1) - 0.5) * 2.0
     return torch.stack([gx, gy], dim=-1), z
+
+
+def rigid_flow(points, K, T, height: int, width: int, eps: float = 1e-7):
+    """The (dy, dx) flow [B, H, W, 2] that depth and pose induce: camera
+    points [B, 4, H*W] projected through K @ T, minus the pixel grid (in
+    the points' dtype)."""
+    b = points.shape[0]
+    cam = _matmul(_matmul(K, T)[:, :3, :], points)
+    xy = (cam[:, :2, :] / (cam[:, 2:3, :] + eps)).reshape(b, 2, height, width)
+    yy, xx = torch.meshgrid(torch.arange(height, dtype=points.dtype, device=points.device),
+                            torch.arange(width, dtype=points.dtype, device=points.device),
+                            indexing="ij")
+    return torch.stack([xy[:, 1] - yy[None], xy[:, 0] - xx[None]], dim=-1)

@@ -6,8 +6,9 @@ No internal resize: the U-Net takes images at the dataset resolution,
 which the ResNet's /32 stride chain must divide.  Its weights ship as two
 reference files, ``encoder.pth`` (keys ``encoder.*`` of ``self.encoder``)
 and ``depth.pth`` (keys ``convs.*`` of ``self.depth``).  BatchNorm runs on
-its running statistics at serving.  f32 only: the JAX ``dtype`` field is
-not ported for this model.
+its running statistics at serving; in train mode (JAX :27-33) on the batch's,
+which it records as pending (`models/resnet.py:BatchNorm`).  ``dtype`` is
+JAX's compute dtype, passed to the encoder and the U-Net.
 """
 
 from __future__ import annotations
@@ -26,10 +27,12 @@ __all__ = ["AFSfMDepth"]
 class AFSfMDepth(nn.Module):
     model_type = "afsfm"
 
-    def __init__(self, num_layers: int = 18, scales: Sequence[int] = (0, 1, 2, 3)):
+    def __init__(self, num_layers: int = 18, scales: Sequence[int] = (0, 1, 2, 3),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.encoder = ResNetEncoder(num_layers)
-        self.depth = DepthDecoder(resnet_num_ch_enc(num_layers), tuple(scales))
+        self.dtype = dtype
+        self.encoder = ResNetEncoder(num_layers, dtype=dtype)
+        self.depth = DepthDecoder(resnet_num_ch_enc(num_layers), tuple(scales), dtype=dtype)
 
     def forward(self, pixels: torch.Tensor, train: bool = False):
         if pixels.ndim == 5:

@@ -13,10 +13,11 @@ the reference state-dict keys under ``head.`` (EndoDAV) or
 ``depth_head.`` (EndoDAC).
 
 ``use_bn`` puts a BatchNorm after each RCU conv (``bn1``, ``bn2``), run
-with its running statistics (`models/resnet.py:BatchNorm`, flax's
-arithmetic) and computed in f32 as flax's ``nn.BatchNorm`` promotes it;
-such a unit never takes the fused kernel (JAX :77-78), and training one
-is not ported.  ``ENDODAV_LOWRES_OUTCONV`` runs each fusion block's 1x1
+with its running statistics at serving and with the batch's in train mode
+(JAX :98-113, ``use_running_average=not train``), which it records as
+pending (`models/resnet.py:BatchNorm`, flax's arithmetic), computed in
+f32 as flax's ``nn.BatchNorm`` promotes it; such a unit never takes the
+fused kernel (JAX :77-78).  ``ENDODAV_LOWRES_OUTCONV`` runs each fusion block's 1x1
 out_conv before its bilinear upsample, the A/B order of JAX's
 `FeatureFusionBlock` (:145-147); the two orders commute exactly.
 
@@ -72,11 +73,9 @@ class ResidualConvUnit(nn.Module):
 
     def forward(self, x, train: bool = False):
         if self.use_bn:
-            if train:
-                raise NotImplementedError("training a BatchNorm head (EndoDAC) is not ported")
             y = self.bn1(conv_nhwc(self.conv1, F.relu(x.to(self.dtype)), self.dtype).float(),
-                         False)
-            y = self.bn2(conv_nhwc(self.conv2, F.relu(y), self.dtype).float(), False)
+                         train)
+            y = self.bn2(conv_nhwc(self.conv2, F.relu(y), self.dtype).float(), train)
             return y + x
         if (not train and self.features <= MAX_CHANNELS and x.shape[-1] == self.features
                 and env_on("ENDODAV_FUSED_RCU")):

@@ -14,9 +14,11 @@ trunk and the head at the cast points of `models/cast.py`; parameters
 stay f32 and ``clone(dtype=torch.bfloat16)`` serves the same tensors in
 bf16.  The resize and ``pre_norm`` stay in the input's dtype.
 
-Adapters: every variant of `models/lora.py`.  Not ported: the JAX fields
-``tp_groups`` and ``scan_trunk`` (tensor parallelism and XLA's compile of
-the trunk), and training an EndoDAC.
+Adapters: every variant of `models/lora.py`.  ``train`` reaches the
+head, where it only matters with ``use_bn`` (batch statistics, recorded
+as pending) and for the fused RCU route (serving only).  Not ported: the
+JAX fields ``tp_groups`` and ``scan_trunk`` (tensor parallelism and XLA's
+compile of the trunk).
 """
 
 from __future__ import annotations

@@ -13,7 +13,15 @@ normalise, and the running update is ``0.9 * old + 0.1 * batch`` with that
 same variance.  A train-mode call only records its batch statistics;
 `commit_batch_stats` applies the update, so when a step applies an
 encoder several times only the last application's statistics are stored
-(`endodav_tpu/train/trainer.py:19-21`).
+(`endodav_tpu/train/trainer.py:19-21`); `discard_batch_stats` drops them
+where JAX's step throws the new statistics away (the depth model's).
+
+``dtype`` is the compute dtype of JAX's ``ResNetEncoder.dtype``: every
+convolution casts its input and kernel to it (`models/cast.py`).  JAX's
+BatchNorms take no ``dtype``, so flax promotes their output with the f32
+scale and bias: statistics and output are f32 whatever the convolution
+gave, and with them the five feature maps.  At f32 every cast is the
+identity.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ import torch.nn.functional as F
 
 from endodav_tpu_torch.models.cast import conv_nhwc
 
-__all__ = ["BatchNorm", "ResNetEncoder", "resnet_num_ch_enc", "commit_batch_stats"]
+__all__ = ["BatchNorm", "ResNetEncoder", "resnet_num_ch_enc", "commit_batch_stats",
+           "discard_batch_stats"]
 
 _LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 MOMENTUM = 0.9
@@ -38,7 +47,8 @@ def resnet_num_ch_enc(num_layers: int) -> tuple[int, ...]:
 
 
 class BatchNorm(nn.Module):
-    """flax-semantics BatchNorm over the channel axis of [B, H, W, C]."""
+    """flax-semantics BatchNorm over the channel axis of [B, H, W, C]; the
+    output is f32 (flax's ``dtype=None`` promotes it with the f32 scale)."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -57,7 +67,7 @@ class BatchNorm(nn.Module):
             self.pending = (mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
-        return ((x - mean) * (torch.rsqrt(var + EPS) * self.weight) + self.bias).to(x.dtype)
+        return (x - mean) * (torch.rsqrt(var + EPS) * self.weight) + self.bias
 
     @torch.no_grad()
     def commit(self) -> None:
@@ -76,9 +86,17 @@ def commit_batch_stats(module: nn.Module) -> None:
             m.commit()
 
 
+def discard_batch_stats(module: nn.Module) -> None:
+    """Drop every pending BatchNorm update inside ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.pending = None
+
+
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, features: int, stride: int):
+    def __init__(self, cin: int, features: int, stride: int, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         # torch 3x3/s2 convs pad (1, 1) on both sides, as the JAX block does
         self.conv1 = nn.Conv2d(cin, features, 3, stride, padding=1, bias=False)
         self.bn1 = BatchNorm(features)
@@ -89,16 +107,17 @@ class BasicBlock(nn.Module):
                                              BatchNorm(features)])
 
     def forward(self, x, train: bool):
-        y = F.relu(self.bn1(conv_nhwc(self.conv1, x), train))
-        y = self.bn2(conv_nhwc(self.conv2, y), train)
+        dt = self.dtype
+        y = F.relu(self.bn1(conv_nhwc(self.conv1, x, dt), train))
+        y = self.bn2(conv_nhwc(self.conv2, y, dt), train)
         if hasattr(self, "downsample"):
             conv, bn = self.downsample
-            x = bn(conv_nhwc(conv, x), train)
+            x = bn(conv_nhwc(conv, x, dt), train)
         return F.relu(y + x)
 
 
 class _Trunk(nn.Module):
-    def __init__(self, num_layers: int, in_ch: int):
+    def __init__(self, num_layers: int, in_ch: int, dtype: torch.dtype):
         super().__init__()
         self.conv1 = nn.Conv2d(in_ch, 64, 7, 2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
@@ -107,7 +126,7 @@ class _Trunk(nn.Module):
                                                  start=1):
             blocks = []
             for b in range(nblocks):
-                blocks.append(BasicBlock(cin, width, 2 if (stage > 1 and b == 0) else 1))
+                blocks.append(BasicBlock(cin, width, 2 if (stage > 1 and b == 0) else 1, dtype))
                 cin = width
             setattr(self, f"layer{stage}", nn.ModuleList(blocks))
 
@@ -115,14 +134,16 @@ class _Trunk(nn.Module):
 class ResNetEncoder(nn.Module):
     """``forward(x [B, H, W, 3 * num_input_images], train)`` -> 5 maps."""
 
-    def __init__(self, num_layers: int = 18, num_input_images: int = 1):
+    def __init__(self, num_layers: int = 18, num_input_images: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         resnet_num_ch_enc(num_layers)
-        self.encoder = _Trunk(num_layers, 3 * num_input_images)
+        self.dtype = dtype
+        self.encoder = _Trunk(num_layers, 3 * num_input_images, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False):
         e = self.encoder
-        y = F.relu(e.bn1(conv_nhwc(e.conv1, x), train))
+        y = F.relu(e.bn1(conv_nhwc(e.conv1, x, self.dtype), train))
         features = [y]
         # maxpool 3x3 stride 2 pad 1 (-inf padding)
         y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)

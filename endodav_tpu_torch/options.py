@@ -91,6 +91,10 @@ class EndoDAVOptions:
         p.add_argument("--host_preprocess", action="store_true",
                        help="build the training pyramid and jitter on the host "
                             "(default: on the card from the scale-0 frames)")
+        p.add_argument("--split", type=str, choices=["endovis", "scared_video"],
+                       default="scared_video",
+                       help="accepted for the shipped scripts' sake; the trainer reads the "
+                            "split of --model_type, as JAX's")
 
         # OPTIMIZATION
         p.add_argument("--batch_size", type=int, default=8)
@@ -102,6 +106,9 @@ class EndoDAVOptions:
         # SYSTEM
         p.add_argument("--no_cuda", action="store_true", help="run on the CPU")
         p.add_argument("--num_workers", type=int, default=4)
+        p.add_argument("--compute_dtype", type=str, default="float32",
+                       choices=["float32", "bfloat16"],
+                       help="the trainer's compute dtype (parameters stay f32)")
         p.add_argument("--log_frequency", type=int, default=400)
         p.add_argument("--save_frequency", type=int, default=5,
                        help="accepted for the JAX CLI's sake; every epoch is saved")
@@ -127,6 +134,9 @@ class EndoDAVOptions:
         p.add_argument("--ext_disp_to_eval", type=str, default=None,
                        help="evaluate_depth: an .npy of already-scaled disparities")
         p.add_argument("--save_pred_disps", action="store_true")
+        p.add_argument("--visualize_depth", action="store_true",
+                       help="accepted for the shipped scripts' sake: the trainer and "
+                            "evaluate_depth_video_pose write no images with it, as JAX's")
         p.add_argument("--post_process", action="store_true",
                        help="evaluate_depth: also run each image flipped, and keep the "
                             "unflipped result (the reference's protocol)")

@@ -16,7 +16,17 @@ get gradients is decided by the caller (`train/optim.set_trainable`), as
 JAX's per-phase `value_and_grad`; ``.detach()`` marks the reference's
 stop-gradient sites.  BatchNorm statistics of train-mode encoder calls are
 recorded in the modules and committed by the trainer
-(`models/resnet.commit_batch_stats`).
+(`models/resnet.commit_batch_stats`); those of the depth model (AF-SfM's
+encoder, an EndoDAC head with ``use_bn``) are dropped, as JAX's
+`main_phase` drops them (``disp_out, _ = _apply(...)``).
+
+The depth model takes the clip as [B, T, H, W, 3]; a single-frame model
+(EndoDAC, AF-SfM) flattens it to its B*T frames, as in JAX.  With a bf16
+compute dtype the tensors promote as JAX's do: the nets' outputs come
+out bf16 and the encoders' maps f32, registrations, colour synthesis and
+refined images f32 (f32 source frames), occlusion masks, depths and the
+flow-warped depths bf16, the learned intrinsics f32 (cast, as JAX :220),
+and the loss f32.
 
 Known reference quirk kept for parity: the temporal depth terms index the
 flattened [B*T] batch with [1:]/[:-1], pairing the last frame of clip b
@@ -31,6 +41,7 @@ from endodav_tpu_torch.geometry.losses import (abs_jax, clip_jax, ncc, reproject
                                                smooth_loss)
 from endodav_tpu_torch.geometry.transforms import (backproject_depth, disp_to_depth,
                                                    project_3d, transformation_from_parameters)
+from endodav_tpu_torch.models.resnet import discard_batch_stats
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.ops.sampling import (flow_to_grid, flow_warp, grid_sample,
                                             occlusion_mask_backward)
@@ -140,6 +151,7 @@ def main_phase(mods, batch, cfg, temporal_weight: float = 1.0):
 
     video = batch[("color_aug", 0, 0)].reshape(cfg["batch_size"], cfg["T"], h, w, 3)
     disp_out = mods["depth_model"](video, train=train)
+    discard_batch_stats(mods["depth_model"])
     for s in scales:
         outputs[("disp", s)] = disp_out[("disp", s)]
 

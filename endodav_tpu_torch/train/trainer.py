@@ -20,10 +20,17 @@ with its own backward pass and Adam update, as the JAX step does inside
 one jit.
 
 Everything runs on the CUDA card unless ``--no_cuda`` asks for the CPU;
-finding no card is an error.  Every ``--lora_type`` trains; the depth
-model is EndoDAV.  TensorBoard writers exist when ``tensorboardX``
-imports, as in JAX.  Not ported: the data-parallel mesh and bf16
-training.
+finding no card is an error.  Every ``--lora_type`` trains, with each
+``--model_type`` as the depth model (JAX :83-113): EndoDAV, EndoDAC
+(``--encoder`` vits or vitb; any other size builds vits) or AF-SfM, whose
+depth parameters all fall in the ``frozen`` group, so that its step
+trains the pose, transform, intrinsics and position nets only, as JAX's
+does.  A single-frame depth model reads the ``endovis`` split for its
+train and val clips (EndoDAV ``scared_video``); the epoch eval reads
+``scared_video``'s val sequences for all three.  ``--compute_dtype
+bfloat16`` builds every component with JAX's bf16 compute dtype (f32
+parameters, Adam state and loss).  TensorBoard writers exist when
+``tensorboardX`` imports, as in JAX.  Not ported: the data-parallel mesh.
 """
 
 from __future__ import annotations
@@ -45,8 +52,10 @@ from endodav_tpu_torch.eval.metrics_device import temporal_metrics_sequence
 from endodav_tpu_torch.eval.video_inference import (DedupWindowForward, dedup_by_default,
                                                     infer_video_depth)
 from endodav_tpu_torch.geometry.transforms import disp_to_depth
+from endodav_tpu_torch.models.afsfm import AFSfMDepth
 from endodav_tpu_torch.models.decoders import (IntrinsicsHead, PoseDecoder, PositionDecoder,
                                                TransformDecoder)
+from endodav_tpu_torch.models.endodac import EndoDAC
 from endodav_tpu_torch.models.endodav import EndoDAV
 from endodav_tpu_torch.models.lora import LoRADense, dash_svd_update, set_dash_phase2
 from endodav_tpu_torch.models.resnet import ResNetEncoder, commit_batch_stats, resnet_num_ch_enc
@@ -68,27 +77,55 @@ _HOST_KEYS = (("frame_window_map",), ("jitter_order",), ("jitter_factors",))
 
 
 def build_models(opt) -> dict:
-    """The eight components of the video trainer (trainer.py:59-134)."""
-    if opt.model_type != "endodav":
-        raise ValueError(f"model_type {opt.model_type!r} is not ported; only endodav trains")
+    """The eight components of the video trainer (trainer.py:59-134), in
+    the compute dtype of ``--compute_dtype`` (:80)."""
+    dtype = torch.bfloat16 if opt.compute_dtype == "bfloat16" else torch.float32
+    residual = [] if opt.disable_residual_block else opt.residual_block_indexes
+    image_shape = tuple(opt.depth_image_shape)
+    if opt.model_type == "endodav":
+        depth = EndoDAV(
+            encoder=opt.encoder, r=opt.lora_rank, lora_type=opt.lora_type,
+            image_shape=image_shape, residual_block_indexes=residual,
+            include_cls_token=opt.include_cls_token, inv_sigmoid=opt.inv_sigmoid,
+            temporal_lora=opt.temporal_lora, conv_head=not opt.disable_conv_head,
+            out_sigmoid=opt.out_sigmoid, dtype=dtype)
+    elif opt.model_type == "afsfm":
+        depth = AFSfMDepth(opt.num_layers, tuple(opt.scales), dtype=dtype)
+    else:
+        depth = EndoDAC(
+            backbone_size=_endodac_size(opt), r=opt.lora_rank, lora_type=opt.lora_type,
+            image_shape=image_shape, residual_block_indexes=residual,
+            include_cls_token=opt.include_cls_token, pre_norm=opt.pre_norm,
+            inv_sigmoid=opt.inv_sigmoid, conv_head=not opt.disable_conv_head, dtype=dtype)
     num_ch = resnet_num_ch_enc(opt.num_layers)
     scales = tuple(opt.scales)
     return {
-        "depth_model": EndoDAV(
-            encoder=opt.encoder, r=opt.lora_rank, lora_type=opt.lora_type,
-            image_shape=tuple(opt.depth_image_shape),
-            residual_block_indexes=[] if opt.disable_residual_block else opt.residual_block_indexes,
-            include_cls_token=opt.include_cls_token, inv_sigmoid=opt.inv_sigmoid,
-            temporal_lora=opt.temporal_lora, conv_head=not opt.disable_conv_head,
-            out_sigmoid=opt.out_sigmoid),
-        "position_encoder": ResNetEncoder(opt.num_layers, num_input_images=2),
-        "position": PositionDecoder(num_ch, scales),
-        "transform_encoder": ResNetEncoder(opt.num_layers, num_input_images=2),
-        "transform": TransformDecoder(num_ch, scales),
-        "pose_encoder": ResNetEncoder(opt.num_layers, num_input_images=2),
-        "pose": PoseDecoder(num_ch[-1], num_frames_to_predict_for=2),
-        "intrinsics_head": IntrinsicsHead(256),
+        "depth_model": depth,
+        "position_encoder": ResNetEncoder(opt.num_layers, num_input_images=2, dtype=dtype),
+        "position": PositionDecoder(num_ch, scales, dtype=dtype),
+        "transform_encoder": ResNetEncoder(opt.num_layers, num_input_images=2, dtype=dtype),
+        "transform": TransformDecoder(num_ch, scales, dtype=dtype),
+        "pose_encoder": ResNetEncoder(opt.num_layers, num_input_images=2, dtype=dtype),
+        "pose": PoseDecoder(num_ch[-1], num_frames_to_predict_for=2, dtype=dtype),
+        "intrinsics_head": IntrinsicsHead(256, dtype=dtype),
     }
+
+
+def _endodac_size(opt) -> str:
+    """EndoDAC's backbone: vits or vitb, any other ``--encoder`` vits (JAX :105)."""
+    return {"vits": "vits", "vitb": "vitb"}.get(opt.encoder, "vits")
+
+
+def pretrained_file(opt) -> str | None:
+    """The released initialisation of the depth model under
+    ``--pretrained_path`` (JAX :281-298): ``video_depth_anything_<enc>.pth``
+    for EndoDAV, ``depth_anything_v2_<vits|vitb>.pth`` for EndoDAC, none for
+    AF-SfM."""
+    if opt.model_type == "afsfm":
+        return None
+    name = (f"video_depth_anything_{opt.encoder}.pth" if opt.model_type == "endodav"
+            else f"depth_anything_v2_{_endodac_size(opt)}.pth")
+    return os.path.join(opt.pretrained_path, name)
 
 
 @torch.no_grad()
@@ -160,8 +197,8 @@ class Trainer:
             raise ValueError(f"the video trainer needs --frame_ids 0 -1 1, got {opt.frame_ids}")
         self.log_path = os.path.join(opt.log_dir, opt.model_type)
         self.mods = init_train_(build_models(opt), opt.seed)
-        if opt.pretrained_path:
-            path = os.path.join(opt.pretrained_path, f"video_depth_anything_{opt.encoder}.pth")
+        path = pretrained_file(opt) if opt.pretrained_path else None
+        if path:
             if os.path.exists(path):
                 report = load_reference_pth(self.mods["depth_model"], path)
                 print(f"[trainer] loaded {report['loaded']} tensors from {path}")
@@ -220,11 +257,13 @@ class Trainer:
 
     def _setup_data(self):
         """The train and val clip loaders and the val sequences of the
-        epoch eval (JAX :304-337), from the split directory as the
-        environment names it now (`splits_dir`)."""
+        epoch eval (JAX :300-337), from the split directory as the
+        environment names it now (`splits_dir`): the clips from
+        ``scared_video`` for EndoDAV and ``endovis`` for a single-frame
+        model, the sequences from ``scared_video`` for all."""
         opt = self.opt
-        split = os.path.join(splits_dir(), "scared_video")
-        fpath = os.path.join(split, "{}_files.txt")
+        split = "scared_video" if opt.model_type == "endodav" else "endovis"
+        fpath = os.path.join(splits_dir(), split, "{}_files.txt")
         if not os.path.exists(fpath.format("train")) or not os.path.isdir(opt.data_path):
             print("[trainer] split files or data_path missing; no data loaders created")
             self.train_loader = self.val_loader = self.val_iter = self.test_sequences = None
@@ -237,10 +276,12 @@ class Trainer:
             random_capable=opt.random_train)
         if len(self.train_dataset) < opt.batch_size:
             raise ValueError(
-                f"video-clip train dataset has {len(self.train_dataset)} samples (< batch_size "
-                f"{opt.batch_size}): the epoch would train nothing.  Check --T (the shipped "
-                f"configs use --T 16; the default -1 yields no clips), --batch_size and the "
-                f"sequence lengths under {opt.data_path}")
+                f"video-clip train dataset has {len(self.train_dataset)} "
+                f"samples (< batch_size {opt.batch_size}) — the epoch "
+                "would silently train nothing. Check --T (the shipped "
+                "configs use --T 16; the default -1 yields no clips), "
+                "--batch_size, and the sequence lengths under "
+                f"{opt.data_path}")
         self.train_loader = Loader(self.train_dataset, opt.batch_size, shuffle=True,
                                    num_workers=max(1, opt.num_workers))
         val_files = readlines(fpath.format("val"))
@@ -248,7 +289,8 @@ class Trainer:
                                        tuple(opt.frame_ids), 4, is_train=False, T=opt.T)
         self.val_loader = Loader(val_dataset, opt.batch_size, shuffle=False)
         self.val_iter = iter(self.val_loader)
-        self.test_sequences = ScaredVideos(opt.data_path, val_files)
+        test_files = readlines(os.path.join(splits_dir(), "scared_video", "val_files.txt"))
+        self.test_sequences = ScaredVideos(opt.data_path, test_files)
         self.num_total_steps = len(self.train_dataset) // opt.batch_size * opt.num_epochs
 
     def _setup_logging(self):
