@@ -132,7 +132,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      training batches (B=16 and B=8 at 12 heads) with both gradients in
      f32 and bf16, temporal attention's bf16 gradient at the three
      training shapes, and the warps and splat fed bf16 through
-     `ops/sampling.py` against the plain versions;
+     `ops/sampling.py` against the plain versions.  The depth model
+     trains as JAX's `_apply` calls it, with ``train=False`` where it has
+     no BatchNorm statistics, so an APE EndoDAV step launches the fused
+     temporal block 8 times (rows 2/3; checked at the training shapes,
+     T=16) and no temporal attention; a RoPE EndoDAV's ssb steps in f32
+     and bf16 (`run_rope_training`) keep row 4's unfused route;
+  8b. the scripts a user runs after `scripts/train_video.sh`, on the
+     ``weights_last`` it saved: `scripts/eval_depth_video1.sh`
+     (`cli/evaluate_depth_video_hamlyn` with ``--visualize_depth`` on a
+     synthetic Hamlyn tree of 2 x 64 288x360 frames: the launches of rows
+     1 and 2/3 per window chunk, finite metrics, each sequence's vis.mp4
+     or JAX's "mp4 export failed" line and its 64 depth .npy files), then
+     `scripts/eval_depth_video_hamlyn_npy.sh` (``--pred_root`` on those
+     files: no launch, the metrics within HAMLYN_RESCORE_RTOL of the model
+     run's) and ``--max_length 32``; `scripts/export_gt.sh` and
+     `scripts/eval_pose.sh` (`cli/export_gt --what both`,
+     `cli/evaluate_pose`) in the training tree's split directory, and
+     `cli/visualize` (``--mode pose`` on the npz files it wrote, drawn
+     where matplotlib imports, its trajectory points checked in any case;
+     ``--mode reconstruction`` on the Hamlyn run's depth files), each
+     phase's seconds and ms/frame or ms/pair;
   9. a JSON line per kernel (rows 1-6 with their bf16 launches and bf16
      error against the plain version; rows 1 and 4 also their launches in
      bf16 training and their rows at the training shapes) and, last, the
@@ -195,6 +215,10 @@ FLASH_GRAD_SHAPES = [(16, 321, 6), (8, 321, 12)]
 # modules; vitl's C=1024 ones and its C=256 ones
 TEMPORAL_SHAPES = [(192, 1702), (384, 437), (64, 6808), (1024, 1702), (1024, 437), (256, 1702),
                    (256, 6808)]
+# the training step's motion modules (T=16; the shapes of TATTN_SHAPES'
+# first four), which take the block since the depth model trains with
+# train=False
+TEMPORAL_TRAIN_SHAPES = [(192, 320), (384, 80), (64, 320), (64, 1280)]
 # fused MLP (C, H, rows): a dedup encode batch of 32 518x644 frames; an
 # EndoDAC batch of 8 224x280 frames at vits and at vitb (768 columns: the
 # widest tile on a cluster of 3)
@@ -285,14 +309,20 @@ SSB_STEPS = 2
 # fused backward: the main-phase depth warps = 1; splat: one occlusion map
 #   per phase = 2 (its mask is a constant to the loss: no backward);
 # flash attention: the 12 ViT blocks of the one depth forward = 12 (the
-#   backward is a plain recompute); temporal block: 0 (the training route
-#   of the motion modules, models/motion.py); temporal attention: the 4
-#   motion modules x 2 attention sub-blocks of that forward = 8;
+#   backward is a plain recompute); temporal block: the 4 motion modules x
+#   2 attention sub-blocks of that forward = 8 (the depth model is called
+#   with train=False, as JAX's `_apply` calls it: APE takes the fused
+#   block, whose backward is a plain recompute); temporal attention: 0
+#   (RoPE's route, ROPE_STEP_LAUNCHES);
 # channel planes: none without ENDODAV_WARP_CP
 STEP_LAUNCHES = {"grid_sample_fwd": 4, "grid_sample_bwd_coord": 2, "grid_sample_bwd_fused": 1,
                  "grid_sample_fwd_cp": 0, "grid_sample_bwd_coord_cp": 0,
                  "grid_sample_bwd_fused_cp": 0, "splat": 2, "flash_attention": 12,
-                 "fused_temporal_block": 0, "temporal_attention": 8}
+                 "fused_temporal_block": 8, "temporal_attention": 0}
+# a RoPE EndoDAV's step: its motion modules take the unfused route, two
+# temporal attentions a module
+ROPE_STEP_LAUNCHES = dict(STEP_LAUNCHES, fused_temporal_block=0, temporal_attention=8)
+ROPE_STEPS = 2
 # with ENDODAV_WARP_CP=1 the C=3 warps take planes: the forward of both
 # registration warps and of colour synthesis (3), the coordinate backward
 # of phase 0's registration and of colour synthesis (2); the depth warps
@@ -2538,7 +2568,7 @@ DAC_VITB_FLAGS = ["--model_type", "endodac", "--encoder", "vitb", "--batch_size"
 # launches a step with a single-frame depth model: the EndoDAV step's warps
 # and splats; EndoDAC's ViT runs once on the batch's frames (a flash
 # attention a block), no motion module; AF-SfM has no ViT
-SINGLE_STEP_LAUNCHES = dict(STEP_LAUNCHES, temporal_attention=0)
+SINGLE_STEP_LAUNCHES = dict(STEP_LAUNCHES, fused_temporal_block=0)
 AFSFM_STEP_LAUNCHES = dict(SINGLE_STEP_LAUNCHES, flash_attention=0)
 DEPTH_STEPS, BF16_STEPS = 2, 5
 # bf16 training's losses, the card against the CPU (a small step) and the
@@ -2825,11 +2855,12 @@ def run_bf16_training(device, root):
     BF16_STEPS batches: step 1's losses with the warp kernels against the
     plain versions (ENDODAV_NO_WARP_MM=1) on the same bf16 inputs, within
     BF16_LOSS_RTOL; every kernel's launches (STEP_LAUNCHES) each step, the
-    flash attentions and temporal attentions on bf16 tensors; ms/step
+    flash attentions and temporal blocks on bf16 tensors; ms/step
     (steps 2 on) and peak memory of each, and step 1's bf16 losses against
     the f32 ones (reported: see BF16_LOSS_RTOL)."""
     from endodav_tpu_torch.eval.engine import splits_dir
-    from endodav_tpu_torch.kernels import flash_attention, temporal_attention
+    from endodav_tpu_torch.kernels import flash_attention
+    from endodav_tpu_torch.kernels import fused_temporal_block as ftb
 
     legs = {}
     batches = None
@@ -2849,7 +2880,7 @@ def run_bf16_training(device, root):
                 f"train ssb {dtype}: the warp kernels move step 1's losses by {rel}")
         del first
         seen = []
-        real = {m: m._launch for m in (flash_attention, temporal_attention)}
+        real = {m: m._launch for m in (flash_attention, ftb)}
         for m, fn in real.items():
             m._launch = lambda *a, fn=fn: seen.append(a[0].dtype) or fn(*a)
         try:
@@ -2874,6 +2905,301 @@ def run_bf16_training(device, root):
           f"{legs['bfloat16']['peak_bytes'] / 2 ** 30:.2f} GiB ({card_line()})")
     legs["rel"] = rel
     return legs
+
+
+def run_rope_training(device, root):
+    """`scripts/train_video.sh`'s training (ssb) with a RoPE EndoDAV (no
+    flag builds one, as in JAX: `train/trainer.py:build_models` made to
+    build ``EndoDAV(pos_embedding_type="rope")``) for ROPE_STEPS steps in
+    f32 and in bf16: RoPE keeps the unfused route in training, two
+    temporal attentions a motion module (ROPE_STEP_LAUNCHES), on tensors
+    of the step's dtype.  Returns the launches and the times of each."""
+    import functools
+
+    from endodav_tpu_torch.eval.engine import splits_dir
+    from endodav_tpu_torch.kernels import temporal_attention
+    from endodav_tpu_torch.train import trainer as T
+
+    legs = {}
+    for dtype in ("float32", "bfloat16"):
+        real_model = T.EndoDAV
+        T.EndoDAV = functools.partial(real_model, pos_embedding_type="rope")
+        try:
+            trainer = depth_trainer(device, root, splits_dir(), SSB_TRAIN_FLAGS,
+                                    "--compute_dtype", dtype)
+        finally:
+            T.EndoDAV = real_model
+        require(trainer.mods["depth_model"].config["pos_embedding_type"] == "rope",
+                "rope training: the depth model is not RoPE")
+        seen, real = [], temporal_attention._launch
+        temporal_attention._launch = lambda *a: seen.append(a[0].dtype) or real(*a)
+        try:
+            legs[dtype] = train_steps(device, trainer, f"train ssb rope {dtype}",
+                                      first_batches(trainer, ROPE_STEPS), ROPE_STEP_LAUNCHES)
+        finally:
+            temporal_attention._launch = real
+        want = torch.float32 if dtype == "float32" else torch.bfloat16
+        require(seen and set(seen) == {want},
+                f"rope training {dtype}: temporal attention launched on {set(seen)}")
+        print(f"[train ssb rope {dtype}] step ms {[round(t, 1) for t in legs[dtype]['step_ms']]}, "
+              f"peak memory {legs[dtype]['peak_bytes'] / 2 ** 30:.2f} GiB ({card_line()})")
+        del trainer
+    return legs
+
+
+# scripts/eval_depth_video1.sh's command exactly (the model that
+# scripts/train_video.sh trains), and eval_depth_video_hamlyn_npy.sh's
+HAMLYN_EVAL_FLAGS = ["--model_type", "endodav", "--eval_split", "hamlyn_video",
+                     "--eval_mono", "--visualize_depth", "--disable_residual_block",
+                     "--disable_conv_head", "--lora_type=ssb"]
+HAMLYN_NPY_FLAGS = ["--eval_split", "hamlyn_video"]
+HAMLYN_SEQS, HAMLYN_FRAMES, HAMLYN_HW, HAMLYN_MAX_LENGTH = 2, 64, (288, 360), 32
+# the --pred_root re-score of the model run's saved (aligned) depths
+# against the model run: the refit of aligned depths is the identity up to
+# rounding (their median and mean deviation are the ground truth's), and
+# the files are read back in f32 (`HamlynVideos`, as JAX's), which moves
+# a depth by 6e-8 relative; a pixel whose ratio to the ground truth then
+# crosses a threshold of a1-a3 moves its frame's share by 1 / (288 * 360)
+# = 1e-5: 1e-4 relative
+HAMLYN_RESCORE_RTOL = 1e-4
+
+
+def write_hamlyn_tree(root, n_seq=HAMLYN_SEQS, n_frames=HAMLYN_FRAMES, hw=HAMLYN_HW):
+    """A synthetic Hamlyn tree made with numpy from the seed: ``rectifiedNN``
+    sequences of ``image01/*.jpg`` frames (PIL) and 16-bit
+    ``depth01/*.png`` depths, a few rows invalid as at a rectified border,
+    and a split directory whose ``hamlyn_video/val_files_all.txt`` names
+    them.  Returns (data root, split directory, sequence names)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 3)
+    h, w = hw
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    names = [f"rectified{k + 1:02d}" for k in range(n_seq)]
+    data = os.path.join(root, "hamlyn")
+    for name in names:
+        base = os.path.join(data, name)
+        os.makedirs(os.path.join(base, "image01"))
+        os.makedirs(os.path.join(base, "depth01"))
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        for i in range(n_frames):
+            img = np.stack([128 + 90 * np.sin(7 * xx + 5 * yy + 0.06 * i + phase[c])
+                            for c in range(3)], -1) + rng.uniform(-10, 10, (h, w, 3))
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(base, "image01", f"{i:010d}.jpg"), quality=95)
+            d = 60 + 40 * yy + 15 * np.cos(3 * xx + 0.05 * i)
+            d[:4] = 0
+            Image.fromarray(d.astype(np.uint16)).save(
+                os.path.join(base, "depth01", f"{i:010d}.png"))
+    splits = os.path.join(root, "splits_hamlyn")
+    os.makedirs(os.path.join(splits, "hamlyn_video"))
+    with open(os.path.join(splits, "hamlyn_video", "val_files_all.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return data, splits, names
+
+
+@contextlib.contextmanager
+def captured_stdout():
+    """The block's standard output, kept (``.getvalue()``) and printed after."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield buf
+    finally:
+        sys.stdout.write(buf.getvalue())
+
+
+def run_hamlyn_script(device, root, weights):
+    """`scripts/eval_depth_video1.sh`'s command on the card
+    (`cli/evaluate_depth_video_hamlyn`, `HAMLYN_EVAL_FLAGS`) on the
+    ``weights`` folder over a synthetic Hamlyn tree: finite metrics, the
+    launches of rows 1 and 2/3 those of the window path over the tree's
+    frames (`expected_serving_launches`), and each sequence's vis.mp4 (or
+    JAX's "mp4 export failed" line) and its aligned depth .npy files; then
+    `scripts/eval_depth_video_hamlyn_npy.sh`'s (``--pred_root`` on those
+    files: no launch, the seven metrics within HAMLYN_RESCORE_RTOL of the
+    model run's), and the model run with ``--max_length 32`` (32 frames a
+    sequence, its launches).  Returns the launches and the times."""
+    from endodav_tpu_torch.cli import evaluate_depth_video_hamlyn as cli
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.options import EndoDAVOptions
+
+    t0 = time.perf_counter()
+    data, splits, names = write_hamlyn_tree(root)
+    print(f"[hamlyn] synthetic Hamlyn tree ({len(names)} x {HAMLYN_FRAMES} frames of "
+          f"{HAMLYN_HW[0]}x{HAMLYN_HW[1]}) written in {time.perf_counter() - t0:.1f} s")
+    counters = _serving_counters()
+    made, real_forward = [], engine.depth_window_forward
+    totals = dict.fromkeys(counters, 0)
+
+    def model_run(args, n_frames):
+        engine.depth_window_forward = lambda model: made.append(real_forward(model)) or made[-1]
+        for fn in counters.values():
+            fn.launches = 0
+        try:
+            t = time.perf_counter()
+            with captured_stdout() as out:
+                result = own_policy("evaluate_depth_video_hamlyn", cli.main, args)
+            seconds = time.perf_counter() - t
+        finally:
+            engine.depth_window_forward = real_forward
+        launches = {k: fn.launches for k, fn in counters.items()}
+        expect, _ = expected_serving_launches(EndoDAVOptions().parse(args), made[-1],
+                                              [{"colors": range(n_frames)}] * len(names))
+        require(launches == expect, f"hamlyn {args}: launches {launches}, expected {expect}")
+        require(np.isfinite(result["mean_errors"]).all() and result["mean_temporal"] is None,
+                f"hamlyn {args}: metrics {result['mean_errors']}")
+        require(result["all_errors"].shape == (len(names) * n_frames, 7),
+                f"hamlyn {args}: {result['all_errors'].shape[0]} frames scored, expected "
+                f"{len(names) * n_frames}")
+        for k in totals:
+            totals[k] += launches[k]
+        return result, out.getvalue(), seconds, launches
+
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        args = [*HAMLYN_EVAL_FLAGS, "--data_path", data, "--load_weights_folder", weights]
+        result, out, cli_s, launches = model_run(args, HAMLYN_FRAMES)
+        saved = os.path.join(weights, "eval", "hamlyn_video")
+        for name in names:
+            npys = sorted(os.listdir(os.path.join(saved, name, "depth")))
+            require(npys == [f"{i:06d}.npy" for i in range(HAMLYN_FRAMES)],
+                    f"hamlyn: {name} saved {len(npys)} depth files")
+            mp4 = os.path.exists(os.path.join(saved, name, "vis.mp4"))
+            require(mp4 or "[eval] mp4 export failed" in out, f"hamlyn: {name} has no vis.mp4")
+        print(f"[hamlyn] evaluate_depth_video_hamlyn {' '.join(HAMLYN_EVAL_FLAGS)}: metrics "
+              f"{result['mean_errors'].tolist()}, launches {launches}, "
+              f"{result['mean_infer_ms']:.3f} ms/frame, the CLI {cli_s:.1f} s, vis.mp4 "
+              f"{'written' if mp4 else 'not written (the mp4 writer failed, as JAX reports)'}")
+
+        npy_args = ["--data_path", data, *HAMLYN_NPY_FLAGS, "--pred_root", saved]
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rescore = cli.main(npy_args)
+        rescore_s = time.perf_counter() - t
+        rel = np.abs(rescore["mean_errors"] - result["mean_errors"]) / np.abs(result["mean_errors"])
+        print(f"[hamlyn] evaluate_depth_video_hamlyn {' '.join(HAMLYN_NPY_FLAGS)} --pred_root: "
+              f"metrics {rescore['mean_errors'].tolist()}, relative to the model run "
+              f"{rel.tolist()}, {rescore_s:.1f} s")
+        require(not any(fn.launches for fn in counters.values()),
+                "hamlyn --pred_root launched a kernel")
+        require(rescore["all_errors"].shape == result["all_errors"].shape
+                and float(rel.max()) <= HAMLYN_RESCORE_RTOL,
+                f"hamlyn --pred_root: metrics relative {rel} to the model run's")
+
+        short, _, short_s, _ = model_run(
+            [*[a for a in args if a != "--visualize_depth"], "--max_length",
+             str(HAMLYN_MAX_LENGTH)], HAMLYN_MAX_LENGTH)
+        print(f"[hamlyn] --max_length {HAMLYN_MAX_LENGTH}: metrics "
+              f"{short['mean_errors'].tolist()}, {short['mean_infer_ms']:.3f} ms/frame, "
+              f"{short_s:.1f} s ({card_line()})")
+    return {"launches": totals, "ms_per_frame": result["mean_infer_ms"], "cli_s": cli_s,
+            "rescore_s": rescore_s, "rescore_rel": float(rel.max()), "saved": saved,
+            "data": data, "names": names, "max_length_s": short_s}
+
+
+def write_pose_split(splits, sequences, n_frames):
+    """``<splits>/endovis``: the pose lists of `cli/evaluate_pose` and
+    `cli/export_gt` (``test_files_sequence{1,2}.txt``, frames 1 to
+    n_frames - 2 of each named sequence, in the repo's line format
+    ``dataset5/keyframe1<TAB>frame<TAB>l``) and ``test_files.txt`` for the
+    depth export.  ``sequences`` are the tree's ``train/...`` names."""
+    os.makedirs(os.path.join(splits, "endovis"), exist_ok=True)
+    folders = [name.split("/", 1)[1] for name in sequences]
+    for n, folder in enumerate(folders, start=1):
+        with open(os.path.join(splits, "endovis", f"test_files_sequence{n}.txt"), "w") as f:
+            f.write("".join(f"{folder}\t{i}\tl\n" for i in range(1, n_frames - 1)))
+    with open(os.path.join(splits, "endovis", "test_files.txt"), "w") as f:
+        f.write("".join(f"{folder}\t{i}\tl\n" for folder in folders
+                        for i in range(1, n_frames, 8)))
+    return len(folders) * (n_frames - 2)
+
+
+def run_pose_tools(device, data, splits, weights, hamlyn):
+    """`scripts/export_gt.sh` (`cli/export_gt --what both`) into the split
+    directory ``splits`` over the SCARED tree ``data`` (the training
+    script's, with ``frame_data`` poses and ``scene_points`` TIFFs), then
+    `scripts/eval_pose.sh` (`cli/evaluate_pose --eval_mono`) on the pose
+    encoder, pose decoder and intrinsics head of ``weights`` on the card,
+    then `cli/visualize --mode pose` on the npz files it wrote and
+    ``--mode reconstruction`` on the Hamlyn run's saved depths (``hamlyn``:
+    its result; the sequence's frames under a SCARED-layout view).  Checks
+    the files and finite ATE, RE and intrinsics.  Returns the times."""
+    from endodav_tpu_torch.cli import evaluate_pose, export_gt, visualize
+
+    with_gt = [n for n, gt in SCRIPT_SEQUENCES if gt]
+    n_pairs = write_pose_split(splits, with_gt, SCRIPT_FRAMES)
+    curve = os.path.join(splits, "endovis", "curve")
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        t = time.perf_counter()
+        export_gt.main(["--data_path", data, "--what", "both"])
+        export_s = time.perf_counter() - t
+        gt_depths = np.load(os.path.join(splits, "endovis", "gt_depths.npz"))["data"]
+        gt_poses = [np.load(os.path.join(curve, f"gt_poses_sequence{n}.npz"))["data"]
+                    for n in (1, 2)]
+        require(gt_depths.ndim == 3 and np.isfinite(gt_depths).all()
+                and all(p.shape == (SCRIPT_FRAMES - 2, 4, 4) for p in gt_poses),
+                f"export_gt: depths {gt_depths.shape}, poses {[p.shape for p in gt_poses]}")
+        t = time.perf_counter()
+        with captured_stdout() as out:
+            results = own_policy("evaluate_pose", evaluate_pose.main,
+                                 ["--data_path", data, "--load_weights_folder", weights,
+                                  "--eval_mono"])
+        pose_s = time.perf_counter() - t
+    report = [ln for ln in out.getvalue().splitlines()
+              if ln.startswith(("sq", "fx", "fy", "cx", "cy"))]
+    require(sorted(results) == [1, 2] and all(
+        np.isfinite([r["ate_mean"], r["re_mean"], *r["ate_ci"]]).all() for r in results.values())
+        and len(report) == 8, f"evaluate_pose: {report}")
+    require(os.path.exists(os.path.join(weights, "pose_eval.txt")),
+            "evaluate_pose: no pose_eval.txt")
+    print(f"[pose tools] export_gt --what both {export_s:.1f} s (depths {gt_depths.shape}); "
+          f"evaluate_pose --eval_mono {pose_s:.1f} s, {pose_s / n_pairs * 1e3:.2f} ms/pair over "
+          f"{n_pairs} pairs with the nets' build: {report}")
+    out_dir = os.path.join(os.path.dirname(splits), "vis")
+    plot = os.path.join(out_dir, "trajectory_sequence1.png")
+    os.makedirs(out_dir)
+    npz = [np.load(os.path.join(curve, f"{k}_poses_sequence1.npz"))["data"] for k in ("pred", "gt")]
+    t = time.perf_counter()
+    try:
+        visualize.main(["--mode", "pose", "--pred_poses",
+                        os.path.join(curve, "pred_poses_sequence1.npz"),
+                        "--gt_poses", os.path.join(curve, "gt_poses_sequence1.npz"), "--out", plot])
+        drawn = "drawn"
+        require(os.path.getsize(plot) > 0, "visualize --mode pose: no plot")
+    except ModuleNotFoundError as e:
+        # the plot is matplotlib's, as JAX's; the card machine has none
+        require(e.name == "matplotlib", f"visualize --mode pose: {e}")
+        drawn = "not drawn: matplotlib is absent here, and the plot is matplotlib's, as JAX's"
+    pts = visualize.trajectory_points(*npz)
+    plot_s = time.perf_counter() - t
+    # the origin and one point a pose
+    require(all(p.shape == (SCRIPT_FRAMES - 1, 3) and np.isfinite(p).all() for p in pts),
+            f"visualize --mode pose: trajectory points {[p.shape for p in pts]}")
+    # the Hamlyn frames of a sequence under a SCARED-layout view
+    # (<seq>/data/left), beside the run's saved depths
+    view = os.path.join(os.path.dirname(splits), "hamlyn_view")
+    name = hamlyn["names"][0]
+    os.makedirs(os.path.join(view, name, "data"))
+    os.symlink(os.path.join(hamlyn["data"], name, "image01"),
+               os.path.join(view, name, "data", "left"))
+    clouds = os.path.join(out_dir, "clouds")
+    t = time.perf_counter()
+    visualize.main(["--mode", "reconstruction", "--data_path", view, "--pred_root",
+                    hamlyn["saved"], "--sequence", name, "--max_frames", "2", "--out", clouds])
+    recon_s = time.perf_counter() - t
+    plys = sorted(os.listdir(clouds))
+    require(plys == ["000000.ply", "000001.ply"], f"visualize --mode reconstruction: {plys}")
+    with open(os.path.join(clouds, plys[0])) as f:
+        head = [next(f) for _ in range(3)]
+    print(f"[pose tools] visualize --mode pose {plot_s:.1f} s ({drawn}; the trajectories' last "
+          f"points GT {pts[0][-1].round(4).tolist()}, scaled prediction "
+          f"{pts[1][-1].round(4).tolist()}); --mode reconstruction "
+          f"{recon_s:.1f} s, {plys}, {head[2].strip()} ({card_line()})")
+    return {"export_s": export_s, "pose_s": pose_s, "ms_per_pair": pose_s / n_pairs * 1e3,
+            "plot_s": plot_s, "recon_s": recon_s}
 
 
 # kernel-name fragments -> the categories of the profiles' breakdowns
@@ -3011,6 +3337,7 @@ def main() -> int:
         temporal_rows = check_temporal(device)
         mlp_rows = check_fused_mlp(device)
         rcu_rows = check_fused_rcu(device)
+        temporal_train_rows = check_temporal(device, TEMPORAL_TRAIN_SHAPES, t=16)
         tattn_rows, tattn_grad_err = check_temporal_attention(device)
         int8_row = check_int8(device)
         warp_rows = check_warps(device)
@@ -3148,8 +3475,14 @@ def main() -> int:
             f.write("\n".join(readlines(VAL_SPLIT)) + "\n")
         single, single_launches = run_single_frame_training(device, root, splits)
         bf16_train = run_bf16_training(device, root)
+        rope_train = run_rope_training(device, root)
     with tempfile.TemporaryDirectory(prefix="training_script_", dir=os.getcwd()) as root:
         script = run_training_script(device, root)
+        # the scripts a user runs after training, on the weights it saved
+        weights = os.path.join(root, "log", "endodav", "models", "weights_last")
+        hamlyn = run_hamlyn_script(device, root, weights)
+        tools = run_pose_tools(device, os.path.join(root, "data"), os.path.join(root, "splits"),
+                               weights, hamlyn)
     with tempfile.TemporaryDirectory(prefix="training_dac1_", dir=os.getcwd()) as root:
         dac1 = run_dac1_script(device, root)
 
@@ -3164,7 +3497,7 @@ def main() -> int:
 
     def served(name):
         return sum(r["launches"][name]
-                   for r in runs + streams + bf16_legs + [baseline, evaluate_row])
+                   for r in runs + streams + bf16_legs + [baseline, evaluate_row, hamlyn])
 
     def single_frame_shapes(rows, shapes):
         """The rows of the single-frame path's shapes (both dtypes)."""
@@ -3185,11 +3518,12 @@ def main() -> int:
     consistency_cp = next(r for r in cp_rows if r["call"] == "flow_consistency")
     # bf16 training: the ssb steps and the single-frame models' bf16 steps
     bf16_trained = {k: n + sum(r["launches"][k] for label, r in single.items()
-                               if label.endswith("bf16"))
+                               if label.endswith("bf16")) + rope_train["bfloat16"]["launches"][k]
                     for k, n in bf16_train["bfloat16"]["launches"].items()}
     trained = {k: (n + ssb_train["launches"][k] + script["launches"][k] + dac1["launches"][k]
                    + single_launches[k] + bf16_train["float32"]["launches"][k]
-                   + bf16_train["bfloat16"]["launches"][k])
+                   + bf16_train["bfloat16"]["launches"][k] + rope_train["float32"]["launches"][k]
+                   + rope_train["bfloat16"]["launches"][k])
                for k, n in train["launches"].items()}
     wide = sum(r["wide_temporal"] for r in runs + streams + bf16_legs + [baseline])
     wide_bf16 = sum(r["wide_temporal"] for r in bf16_legs)
@@ -3214,10 +3548,15 @@ def main() -> int:
         entry("fused_temporal_block", "endodav_tpu_torch/csrc/fused_temporal_block.cu",
               "endodav_tpu/kernels/fused_temporal_block.py:76",
               served("fused_temporal_block") + trained["fused_temporal_block"] - wide,
-              f32(block_rows), head_of(block_rows, "rows=1702 T=32 C=192"),
+              max(f32(block_rows), f32(temporal_train_rows)),
+              head_of(block_rows, "rows=1702 T=32 C=192"),
               "rows=1702 T=32 C=192",
-              bf16_launches=at_bf16("fused_temporal_block") - wide_bf16,
-              bf16_max_abs_err=bf16_err(block_rows)),
+              bf16_launches=(at_bf16("fused_temporal_block") - wide_bf16
+                             + bf16_trained["fused_temporal_block"]),
+              bf16_max_abs_err=max(bf16_err(block_rows), bf16_err(temporal_train_rows)),
+              bf16_train_launches=bf16_trained["fused_temporal_block"],
+              training=single_frame_shapes(temporal_train_rows, tuple(
+                  f"rows={n} T=16 C={c}" for c, n in TEMPORAL_TRAIN_SHAPES))),
         entry("fused_temporal_block_grouped", "endodav_tpu_torch/csrc/fused_temporal_block.cu",
               "endodav_tpu/kernels/fused_temporal_block.py:120", wide, f32(grouped_rows),
               head_of(grouped_rows, "rows=1702 T=32 C=1024"), "rows=1702 T=32 C=1024",
@@ -3315,6 +3654,16 @@ def main() -> int:
           f"{bf16_train['bfloat16']['peak_bytes'] / 2 ** 30:.2f} GiB, step-1 losses relative "
           f"{bf16_train['rel']} (reported: JAX's bf16 grids, BF16_LOSS_RTOL); bf16-fed warps "
           f"max |err| {warp_bf16_err:.3e} of max(1, the largest entry) ({card})")
+    print(f"[summary] the scripts after training, on weights_last: eval_depth_video1.sh "
+          f"(Hamlyn, {HAMLYN_SEQS} x {HAMLYN_FRAMES} frames) {hamlyn['ms_per_frame']:.3f} "
+          f"ms/frame, the CLI {hamlyn['cli_s']:.1f} s; eval_depth_video_hamlyn_npy.sh "
+          f"{hamlyn['rescore_s']:.1f} s, metrics within {hamlyn['rescore_rel']:.2e} of the model "
+          f"run's; --max_length {HAMLYN_MAX_LENGTH} {hamlyn['max_length_s']:.1f} s; export_gt "
+          f"{tools['export_s']:.1f} s; eval_pose.sh {tools['pose_s']:.1f} s "
+          f"({tools['ms_per_pair']:.2f} ms/pair); visualize pose {tools['plot_s']:.1f} s, "
+          f"reconstruction {tools['recon_s']:.1f} s; RoPE ssb training step ms f32 "
+          f"{[round(t, 1) for t in rope_train['float32']['step_ms']]} bf16 "
+          f"{[round(t, 1) for t in rope_train['bfloat16']['step_ms']]} ({card})")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,9 @@ sliding-window inference per sequence (``--model_type endodav``) or
 frame-independent inference in batches of 8 (``endodac``, ``afsfm``: the
 paper's single-frame baselines), aligns, and prints the per-frame depth
 errors with TAE/TAS, the abs_rel 95% CI and the mean inference time per
-frame — the same lines as `endodav_tpu`'s CLI.
+frame — the same lines as `endodav_tpu`'s CLI.  ``--visualize_depth``
+writes each sequence's vis.mp4 and aligned depth .npy files under
+``<load_weights_folder>/eval/<eval_split>``.
 """
 
 from __future__ import annotations
@@ -33,17 +35,23 @@ def report(result) -> list[str]:
     return lines
 
 
-def evaluate(opt):
+def save_folder(opt) -> str | None:
+    """``<load_weights_folder>/eval/<eval_split>``, where ``--visualize_depth``
+    writes each sequence's vis.mp4 and depth .npy files (JAX :31-34)."""
     if opt.visualize_depth and opt.load_weights_folder:
-        raise NotImplementedError("--visualize_depth (the depth images JAX's CLI writes under "
-                                  "<load_weights_folder>/eval) is not ported")
+        return os.path.join(os.path.expanduser(opt.load_weights_folder), "eval", opt.eval_split)
+    return None
+
+
+def evaluate(opt):
     filenames = readlines(os.path.join(engine.splits_dir(), opt.eval_split, "val_files.txt"))
     sequences = ScaredVideos(opt.data_path, filenames, pred_root=opt.pred_root)
     device = engine.resolve_device(opt)
     forward = None
     if opt.pred_root is None:
         forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
-    result = engine.evaluate_video_sequences(opt, sequences, forward, device=device)
+    result = engine.evaluate_video_sequences(opt, sequences, forward, device=device,
+                                             save_folder=save_folder(opt))
     lines = report(result)
     print("\n".join(lines))
     if opt.load_weights_folder:

@@ -303,13 +303,20 @@ def print_ci_row(*error_arrays):
     print("cls: " + " ".join(f"[{lo:.4f}, {hi:.4f}]" for lo, hi in cls))
 
 
-def evaluate_video_sequences(opt, sequences, forward=None, device=None):
-    """Shared video-depth benchmark loop; ``opt.model_type`` picks the
-    window pipeline (endodav) or the single-frame one (endodac, afsfm).
+def evaluate_video_sequences(opt, sequences, forward=None, device=None, max_depth=MAX_DEPTH,
+                             with_temporal=True, pred_depths_fn=None,
+                             save_folder: str | None = None):
+    """Shared video-depth benchmark loop (JAX :488-608); ``opt.model_type``
+    picks the window pipeline (endodav) or the single-frame one (endodac,
+    afsfm), and ``pred_depths_fn(colors)`` -> disparities replaces both.
 
-    sequences: iterable of dicts with colors/depths/poses/Ks/filename (or
-    depths + pred_depths in re-eval mode).  Returns per-sequence and mean
-    metrics and the mean inference time per frame.
+    sequences: iterable of dicts with colors/depths[/poses/Ks]/filename (or
+    depths + pred_depths in re-eval mode).  ``max_depth`` bounds the
+    alignment and the mask; ``with_temporal=False`` drops TAE/TAS.  With
+    ``--visualize_depth`` and a ``save_folder``, each sequence writes
+    ``<save_folder>/<filename>/vis.mp4`` and ``depth/{i:06d}.npy`` of the
+    aligned depths (JAX :553-564).  Returns per-sequence and mean metrics
+    and the mean inference time per frame.
     """
     device = resolve_device(opt) if device is None else device
     errors, errors_temp, ratios, align_stats, per_sequence, infer_times = [], [], [], [], [], []
@@ -320,7 +327,9 @@ def evaluate_video_sequences(opt, sequences, forward=None, device=None):
                 _, pred_depths = disp_to_depth(pred_depths, opt.min_depth, opt.max_depth)
         else:
             t0 = time.perf_counter()
-            if opt.model_type == "endodav":
+            if pred_depths_fn is not None:
+                disp = pred_depths_fn(data["colors"])
+            elif opt.model_type == "endodav":
                 disp = infer_video_depth(forward, data["colors"],
                                          image_shape=tuple(opt.depth_image_shape),
                                          chunk_windows=opt.chunk_windows, device=device,
@@ -333,22 +342,35 @@ def evaluate_video_sequences(opt, sequences, forward=None, device=None):
 
         gt_depths = data["depths"]
         if opt.depth_align == "scale":
-            pred_depths, ratio = M.median_scaling(gt_depths, pred_depths, MIN_DEPTH, MAX_DEPTH)
+            pred_depths, ratio = M.median_scaling(gt_depths, pred_depths, MIN_DEPTH, max_depth)
             if not np.isnan(ratio):
                 ratios.append(ratio)
         else:
             pred_depths, *stats = M.align_shift_and_scale(gt_depths, pred_depths, MIN_DEPTH,
-                                                          MAX_DEPTH)
+                                                          max_depth)
             align_stats.append(stats)
+
+        if opt.visualize_depth and save_folder and "colors" in data:
+            seq_dir = os.path.join(save_folder, data.get("filename", f"seq{len(per_sequence)}"))
+            depth_dir = os.path.join(seq_dir, "depth")
+            os.makedirs(depth_dir, exist_ok=True)
+            from endodav_tpu_torch.cli.visualize import save_depth_video
+
+            try:
+                save_depth_video(data["colors"], pred_depths, os.path.join(seq_dir, "vis.mp4"))
+            except Exception as e:
+                print(f"[eval] mp4 export failed ({e}); writing npys only")
+            for i in range(pred_depths.shape[0]):
+                np.save(os.path.join(depth_dir, f"{i:06d}.npy"), pred_depths[i])
 
         seq_errors, seq_temp = [], []
         prev = None
-        has_pose = "poses" in data
+        has_pose = with_temporal and "poses" in data
         for idx in range(len(gt_depths)):
             gt = gt_depths[idx]
             pred = pred_depths[idx] * opt.pred_depth_scale_factor
-            mask = (gt > MIN_DEPTH) & (gt < MAX_DEPTH)
-            pred = np.clip(pred, MIN_DEPTH, MAX_DEPTH)
+            mask = (gt > MIN_DEPTH) & (gt < max_depth)
+            pred = np.clip(pred, MIN_DEPTH, max_depth)
             e = M.compute_errors(gt, pred, mask)
             if not np.isnan(e).all():
                 seq_errors.append(e)

@@ -10,9 +10,13 @@ Port of `endodav_tpu/models/decoders.py:81-207`, channels-last:
     pyramid (reflect-padded 3x3 convs + ELU, 2x bilinear align_corners=False
     upsampling) -> 2-ch flow / 3-ch tanh appearance flow at 4 scales
   * DepthDecoder: the same U-Net -> reflect-padded 3x3 -> sigmoid
-    disparity at 4 scales (the legacy AF-SfM model, `models/afsfm.py`).
+    disparity at 4 scales (the legacy AF-SfM model, `models/afsfm.py`;
+    the trainer's ``--predictive_mask`` decoder)
+  * PoseCNN: the 7-conv PoseNet of ``--pose_model_type posecnn`` (JAX
+    :210-229), which the video trainer refuses, as JAX's.
 Parameter names are the reference's (``convs.upconv_4_0.conv.conv.weight``,
-``convs.position_conv_0.weight``, ``focal_length_conv.weight`` ...).
+``convs.position_conv_0.weight``, ``focal_length_conv.weight``,
+PoseCNN's ``net.0.weight`` and ``pose_conv.weight`` ...).
 
 ``dtype`` is the compute dtype of JAX's decoders' ``dtype``: every
 convolution casts its input, kernel and bias to it (`models/cast.py`), so
@@ -33,7 +37,7 @@ from endodav_tpu_torch.models.cast import conv_nhwc
 from endodav_tpu_torch.ops.resize import resize2d
 
 __all__ = ["PoseDecoder", "IntrinsicsHead", "PositionDecoder", "TransformDecoder",
-           "DepthDecoder"]
+           "DepthDecoder", "PoseCNN"]
 
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
@@ -198,3 +202,28 @@ class DepthDecoder(_UNetDecoder):
         lv = self.levels(features)
         return {("disp", s): torch.sigmoid(self.convs[f"dispconv_{s}"](lv[s]))
                 for s in self.scales}
+
+
+class PoseCNN(nn.Module):
+    """[B, H, W, 3 * frames] -> (axisangle, translation), each
+    [B, frames - 1, 1, 3]: seven stride-2 convs + ReLU, padded k // 2 on
+    both sides as the reference (pose_cnn.py:16-24), a 1x1 pose conv, the
+    spatial mean, times 0.01."""
+
+    SPECS = ((16, 7), (32, 5), (64, 3), (128, 3), (256, 3), (256, 3), (256, 3))
+
+    def __init__(self, num_input_frames: int = 2, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.frames = num_input_frames
+        self.dtype = dtype
+        cins = (3 * num_input_frames,) + tuple(c for c, _ in self.SPECS[:-1])
+        self.net = nn.ModuleList(nn.Conv2d(cin, c, k, 2, padding=k // 2)
+                                 for cin, (c, k) in zip(cins, self.SPECS))
+        self.pose_conv = nn.Conv2d(256, 6 * (num_input_frames - 1), 1)
+
+    def forward(self, x):
+        for conv in self.net:
+            x = F.relu(conv_nhwc(conv, x, self.dtype))
+        x = conv_nhwc(self.pose_conv, x, self.dtype).mean(dim=(1, 2))
+        out = 0.01 * x.reshape(-1, self.frames - 1, 1, 6)
+        return out[..., :3], out[..., 3:]

@@ -1,10 +1,11 @@
 """Flags of the port's eval CLIs and trainer.
 
-The depth and pose eval (video and single-frame) and training subset of
-`endodav_tpu/options.py`, with the same names and defaults so shell
-scripts carry over (``scripts/train_video.sh`` runs both its commands on
-the port's CLIs), plus
-``--seed`` for the random init used when no weights are given.
+The flags of `endodav_tpu/options.py`, with the same names, defaults and
+choices so shell scripts carry over (``scripts/train_video.sh`` runs both
+its commands on the port's CLIs), inert where JAX's are (README "Flags
+that are accepted but intentionally inert"), plus ``--seed`` for the
+random init used when no weights are given.  ``--mesh_shape`` and
+``--serve_mesh`` are not ported (one card).
 ``--no_cuda`` selects the CPU; without it the port runs on CUDA and fails
 when there is no GPU.
 """
@@ -95,6 +96,29 @@ class EndoDAVOptions:
                        default="scared_video",
                        help="accepted for the shipped scripts' sake; the trainer reads the "
                             "split of --model_type, as JAX's")
+        p.add_argument("--model_name", type=str, default="endodav",
+                       help="accepted, inert (as JAX's): the log folder is <log_dir>/<model_type>")
+        p.add_argument("--dataset", type=str, default="scared_video",
+                       choices=["endovis", "scared_video"], help="accepted, inert (as JAX's)")
+        p.add_argument("--png", action="store_true", help="accepted, inert (as JAX's)")
+        p.add_argument("--weights_init", type=str, default="pretrained",
+                       choices=["pretrained", "scratch"], help="accepted, inert (as JAX's)")
+
+        # ABLATION (JAX's flags; the video trainer reads only the last three)
+        p.add_argument("--v1_multiscale", action="store_true", help="accepted, inert (as JAX's)")
+        p.add_argument("--avg_reprojection", action="store_true",
+                       help="accepted, inert (as JAX's)")
+        p.add_argument("--disable_automasking", action="store_true",
+                       help="accepted, inert (as JAX's)")
+        p.add_argument("--predictive_mask", action="store_true",
+                       help="build the predictive-mask DepthDecoder, which no loss reads and "
+                            "no checkpoint carries (as JAX's)")
+        p.add_argument("--pose_model_input", type=str, default="pairs", choices=["pairs", "all"],
+                       help="the video trainer runs 'pairs' only; 'all' raises, as JAX's")
+        p.add_argument("--pose_model_type", type=str, default="separate_resnet",
+                       choices=["posecnn", "separate_resnet", "shared"],
+                       help="the video trainer runs 'separate_resnet' only; the others raise, "
+                            "as JAX's (PoseCNN is models/decoders.py:PoseCNN)")
 
         # OPTIMIZATION
         p.add_argument("--batch_size", type=int, default=8)
@@ -105,6 +129,8 @@ class EndoDAVOptions:
 
         # SYSTEM
         p.add_argument("--no_cuda", action="store_true", help="run on the CPU")
+        p.add_argument("--use_dp", action="store_true",
+                       help="accepted, inert (as JAX's): one card, no data-parallel wrapper")
         p.add_argument("--num_workers", type=int, default=4)
         p.add_argument("--compute_dtype", type=str, default="float32",
                        choices=["float32", "bfloat16"],
@@ -127,7 +153,15 @@ class EndoDAVOptions:
         p.add_argument("--pred_root", type=str, default=None)
         p.add_argument("--disp2depth", action="store_true")
         p.add_argument("--eval_split", type=str, default="scared_video",
-                       choices=["scared_video", "endovis", "hamlyn", "c3vd"])
+                       choices=["hamlyn", "c3vd", "endovis", "scared_video", "hamlyn_video"])
+        p.add_argument("--eval_stereo", action="store_true", help="accepted, inert (as JAX's)")
+        p.add_argument("--eval_eigen_to_benchmark", action="store_true",
+                       help="accepted, inert (as JAX's)")
+        p.add_argument("--eval_out_dir", type=str, help="accepted, inert (as JAX's)")
+        p.add_argument("--no_eval", action="store_true", help="accepted, inert (as JAX's)")
+        p.add_argument("--save_recon", action="store_true", help="accepted, inert (as JAX's)")
+        p.add_argument("--max_length", type=int, default=None,
+                       help="the Hamlyn video eval: the first N frames of each sequence")
         p.add_argument("--disable_median_scaling", action="store_true")
         p.add_argument("--eval_mono", action="store_true",
                        help="accepted for the shipped scripts' sake (monocular is the only mode)")
@@ -135,8 +169,10 @@ class EndoDAVOptions:
                        help="evaluate_depth: an .npy of already-scaled disparities")
         p.add_argument("--save_pred_disps", action="store_true")
         p.add_argument("--visualize_depth", action="store_true",
-                       help="accepted for the shipped scripts' sake: the trainer and "
-                            "evaluate_depth_video_pose write no images with it, as JAX's")
+                       help="the video evals (evaluate_depth_video, the Hamlyn eval) write "
+                            "vis.mp4 and the aligned depth .npy files of each sequence under "
+                            "<load_weights_folder>/eval/<eval_split>; the trainer and "
+                            "evaluate_depth_video_pose write nothing with it, as JAX's")
         p.add_argument("--post_process", action="store_true",
                        help="evaluate_depth: also run each image flipped, and keep the "
                             "unflipped result (the reference's protocol)")

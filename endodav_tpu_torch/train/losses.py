@@ -41,12 +41,13 @@ from endodav_tpu_torch.geometry.losses import (abs_jax, clip_jax, ncc, reproject
                                                smooth_loss)
 from endodav_tpu_torch.geometry.transforms import (backproject_depth, disp_to_depth,
                                                    project_3d, transformation_from_parameters)
-from endodav_tpu_torch.models.resnet import discard_batch_stats
+from endodav_tpu_torch.models.resnet import BatchNorm, discard_batch_stats
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.ops.sampling import (flow_to_grid, flow_warp, grid_sample,
                                             occlusion_mask_backward)
 
-__all__ = ["forward_flow_nets", "position_phase_loss", "main_phase", "validation_ncc"]
+__all__ = ["forward_flow_nets", "position_phase_loss", "depth_train_mode", "main_phase",
+           "validation_ncc"]
 
 
 def _up(x, hw):
@@ -138,6 +139,16 @@ def _masked_mean(x, mask):
     return (x * m).sum() / m.sum().clamp_min(1.0)
 
 
+def depth_train_mode(model: torch.nn.Module, train: bool) -> bool:
+    """The ``train`` the depth model is called with, as JAX's `_apply`
+    (losses.py:70-77) calls it: ``train`` where the model holds BatchNorm
+    statistics (AF-SfM's encoder, an EndoDAC head with ``use_bn``), else
+    its default, False (EndoDAV, EndoDAC without ``use_bn``).  So APE
+    EndoDAV trains through the fused temporal block, as JAX on the
+    hardware it routes for."""
+    return train and any(isinstance(m, BatchNorm) for m in model.modules())
+
+
 def main_phase(mods, batch, cfg, temporal_weight: float = 1.0):
     """Depth + pose forward, image synthesis and the full loss
     (`main_phase`, losses.py:184-423).  Returns (loss, {"losses",
@@ -150,7 +161,7 @@ def main_phase(mods, batch, cfg, temporal_weight: float = 1.0):
                                 train_transform=train)
 
     video = batch[("color_aug", 0, 0)].reshape(cfg["batch_size"], cfg["T"], h, w, 3)
-    disp_out = mods["depth_model"](video, train=train)
+    disp_out = mods["depth_model"](video, train=depth_train_mode(mods["depth_model"], train))
     discard_batch_stats(mods["depth_model"])
     for s in scales:
         outputs[("disp", s)] = disp_out[("disp", s)]

@@ -53,8 +53,8 @@ from endodav_tpu_torch.eval.video_inference import (DedupWindowForward, dedup_by
                                                     infer_video_depth)
 from endodav_tpu_torch.geometry.transforms import disp_to_depth
 from endodav_tpu_torch.models.afsfm import AFSfMDepth
-from endodav_tpu_torch.models.decoders import (IntrinsicsHead, PoseDecoder, PositionDecoder,
-                                               TransformDecoder)
+from endodav_tpu_torch.models.decoders import (DepthDecoder, IntrinsicsHead, PoseDecoder,
+                                               PositionDecoder, TransformDecoder)
 from endodav_tpu_torch.models.endodac import EndoDAC
 from endodav_tpu_torch.models.endodav import EndoDAV
 from endodav_tpu_torch.models.lora import LoRADense, dash_svd_update, set_dash_phase2
@@ -78,7 +78,21 @@ _HOST_KEYS = (("frame_window_map",), ("jitter_order",), ("jitter_factors",))
 
 def build_models(opt) -> dict:
     """The eight components of the video trainer (trainer.py:59-134), in
-    the compute dtype of ``--compute_dtype`` (:80)."""
+    the compute dtype of ``--compute_dtype`` (:80), and with
+    ``--predictive_mask`` a ninth, the mask `DepthDecoder` (:125-134), which
+    no loss reads, no optimizer steps and no checkpoint carries, as JAX's.
+    The pose flags the video trainer cannot run raise JAX's errors (:60-79)."""
+    if getattr(opt, "pose_model_type", "separate_resnet") != "separate_resnet":
+        raise ValueError(
+            f"pose_model_type={opt.pose_model_type!r} cannot run the video "
+            "trainer (the reference crashes before the first step on these "
+            "settings; see endodav_tpu/train/trainer.py:build_models). Use "
+            "'separate_resnet'.")
+    if getattr(opt, "pose_model_input", "pairs") != "pairs":
+        raise ValueError(
+            "pose_model_input='all' yields an empty predict_poses in the "
+            "reference video trainer (trainer_end_to_end_video.py:745); use "
+            "'pairs'.")
     dtype = torch.bfloat16 if opt.compute_dtype == "bfloat16" else torch.float32
     residual = [] if opt.disable_residual_block else opt.residual_block_indexes
     image_shape = tuple(opt.depth_image_shape)
@@ -99,7 +113,7 @@ def build_models(opt) -> dict:
             inv_sigmoid=opt.inv_sigmoid, conv_head=not opt.disable_conv_head, dtype=dtype)
     num_ch = resnet_num_ch_enc(opt.num_layers)
     scales = tuple(opt.scales)
-    return {
+    mods = {
         "depth_model": depth,
         "position_encoder": ResNetEncoder(opt.num_layers, num_input_images=2, dtype=dtype),
         "position": PositionDecoder(num_ch, scales, dtype=dtype),
@@ -109,6 +123,11 @@ def build_models(opt) -> dict:
         "pose": PoseDecoder(num_ch[-1], num_frames_to_predict_for=2, dtype=dtype),
         "intrinsics_head": IntrinsicsHead(256, dtype=dtype),
     }
+    if getattr(opt, "predictive_mask", False):
+        mods["predictive_mask"] = DepthDecoder(num_ch, scales,
+                                               num_output_channels=len(opt.frame_ids) - 1,
+                                               dtype=dtype)
+    return mods
 
 
 def _endodac_size(opt) -> str:
@@ -196,7 +215,13 @@ class Trainer:
         if tuple(opt.frame_ids) != FRAME_IDS:
             raise ValueError(f"the video trainer needs --frame_ids 0 -1 1, got {opt.frame_ids}")
         self.log_path = os.path.join(opt.log_dir, opt.model_type)
-        self.mods = init_train_(build_models(opt), opt.seed)
+        mods = build_models(opt)
+        # the eight components' seeded init does not depend on the mask decoder
+        self.mods = init_train_({k: m for k, m in mods.items() if k != "predictive_mask"},
+                                opt.seed)
+        if "predictive_mask" in mods:
+            self.mods["predictive_mask"] = init_train_(
+                {"predictive_mask": mods["predictive_mask"]}, opt.seed)["predictive_mask"]
         path = pretrained_file(opt) if opt.pretrained_path else None
         if path:
             if os.path.exists(path):
@@ -601,7 +626,7 @@ class Trainer:
         ``adam.msgpack``."""
         folder = os.path.join(self.log_path, "models",
                               f"weights_{self.epoch}" if mode == "epoch" else "weights_last")
-        ckpt.save_components(folder, self.mods, metadata={
+        ckpt.save_components(folder, {**self.main_mods, **self.pos_mods}, metadata={
             "height": self.opt.height, "width": self.opt.width,
             "use_stereo": self.opt.use_stereo, "dash_phase2": bool(self.dash_phase2)})
         ckpt.save_pytree(os.path.join(folder, "adam.msgpack"), self.adam_state())

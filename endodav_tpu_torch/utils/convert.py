@@ -234,8 +234,13 @@ def resnet_encoder_rules():
 
 def decoder_rules():
     """(torch_key, flax_path, layout) for the pose, intrinsics, position,
-    transform and depth decoders."""
+    transform and depth decoders and PoseCNN."""
     rules = []
+    for i in range(7):
+        rules.append((f"net.{i}.weight", (f"convs_{i}", "kernel"), _CONV))
+        rules.append((f"net.{i}.bias", (f"convs_{i}", "bias"), None))
+    rules.append(("pose_conv.weight", ("pose_conv", "kernel"), _CONV))
+    rules.append(("pose_conv.bias", ("pose_conv", "bias"), None))
     for n in ("squeeze", "pose_0", "pose_1", "pose_2"):
         rules.append((f"convs.{n}.weight", (n, "kernel"), _CONV))
         rules.append((f"convs.{n}.bias", (n, "bias"), None))

@@ -456,12 +456,24 @@ def test_endodac_checkpoints_both_ways_and_served(dac_read, jax_dac, tmp_path):
 def test_visualize_depth_flag(dac_read, tmp_path):
     """``--visualize_depth`` (`scripts/train_video_dac1.sh`) parses for the
     trainer and `evaluate_depth_video_pose`, which write no images with it,
-    as JAX's; `evaluate_depth_video`, whose JAX counterpart writes depth
-    images under the weights folder, refuses it there (not ported)."""
+    as JAX's; `evaluate_depth_video` writes, as JAX's CLI, each sequence's
+    aligned depths as ``<load_weights_folder>/eval/<eval_split>/<seq>/
+    depth/{i:06d}.npy`` (and vis.mp4, or JAX's line when the mp4 writer
+    fails)."""
     from endodav_tpu_torch.cli import evaluate_depth_video
+    from endodav_tpu_torch.eval import engine
 
     opt = port_opt("--data_path", dac_read, "--visualize_depth", *DAC_ARGS)
     assert opt.visualize_depth and jax_opt("--visualize_depth").visualize_depth
-    with pytest.raises(NotImplementedError, match="visualize_depth"):
-        evaluate_depth_video.evaluate(port_opt("--data_path", dac_read, "--visualize_depth",
-                                               "--load_weights_folder", str(tmp_path)))
+    flags = ["--data_path", dac_read, "--model_type", "endodac", "--depth_image_shape", "28",
+             "42", "--disable_conv_head"]
+    torch.save(engine.build_depth_model(port_opt(*flags)).state_dict(),
+               str(tmp_path / "depth_model.pth"))
+    result = evaluate_depth_video.evaluate(port_opt(*flags, "--visualize_depth",
+                                                    "--load_weights_folder", str(tmp_path)))
+    seq_dir = tmp_path / "eval" / "scared_video" / SEQ_VAL
+    npys = sorted((seq_dir / "depth").iterdir())
+    assert [p.name for p in npys] == [f"{i:06d}.npy" for i in range(24)]
+    depths = np.stack([np.load(p) for p in npys])
+    assert depths.shape == (24, 64, 96) and np.isfinite(depths).all()
+    assert np.isfinite(result["mean_errors"]).all()
