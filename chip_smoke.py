@@ -206,9 +206,10 @@ BF16_REL_MAX, BF16_REL_MEAN = 2.0, 1.5
 # vitl (H=16); EndoDAC's single-frame batches of 8 224x280 frames at vits
 # and vitb (H=12), which are also train_video_dac.sh's vitb training
 # batches; the training step's 16 frames (EndoDAV B*T, train_video_dac1.sh's
-# EndoDAC batch)
+# EndoDAC batch); the vitg trunk's VITG_FRAMES 518x644 frames (H=24)
+VITG_FRAMES = 4
 FLASH_SHAPES = [(64, 321, 6), (64, 1703, 6), (32, 1703, 16), (8, 321, 6), (8, 321, 12),
-                (16, 321, 6)]
+                (16, 321, 6), (VITG_FRAMES, 1703, 24)]
 # the gradient of the kernel path at the training batches: (B, N, H)
 FLASH_GRAD_SHAPES = [(16, 321, 6), (8, 321, 12)]
 # temporal block (C, rows) of one 518x644 window: vits's four motion
@@ -221,9 +222,11 @@ TEMPORAL_SHAPES = [(192, 1702), (384, 437), (64, 6808), (1024, 1702), (1024, 437
 TEMPORAL_TRAIN_SHAPES = [(192, 320), (384, 80), (64, 320), (64, 1280)]
 # fused MLP (C, H, rows): a dedup encode batch of 32 518x644 frames; an
 # EndoDAC batch of 8 224x280 frames at vits and at vitb (768 columns: the
-# widest tile on a cluster of 3)
+# widest tile on a cluster of 3); the vitg trunk's frames (1536 columns: 64-row
+# tiles on a cluster of 6), and 2048 columns on the largest cluster, 8 (no
+# model has that width: the kernel's widest)
 MLP_SHAPES = [(384, 1536, 32 * 1703), (1024, 4096, 32 * 1703), (384, 1536, 8 * 321),
-              (768, 3072, 8 * 321)]
+              (768, 3072, 8 * 321), (1536, 6144, VITG_FRAMES * 1703), (2048, 8192, 4096)]
 # fused RCU (B, H, W, C): the vits head's RCU inputs of one 518x644 window
 # (refinenet4 19x23, refinenet3 37x46, refinenet2 74x92, refinenet1
 # 148x184) and of a 224x280 window (refinenet1 64x80); EndoDAC's of a batch
@@ -1620,7 +1623,7 @@ def run_evaluate_depth(device, args=ENDODAC_VITB, n_frames=16, h=512, w=640):
             wall = time.perf_counter() - t0
             launches = {k: fn.launches for k, fn in counters.items()}
     batches = -(-n_frames // SINGLE_FRAME_BATCH)
-    flash = VIT_CONFIGS[opt.encoder]["depth"] * batches
+    flash = 0 if opt.model_type == "afsfm" else VIT_CONFIGS[opt.encoder]["depth"] * batches
     print(f"[evaluate_depth] {' '.join(args)}: {n_frames} frames {h}x{w}, errors "
           f"{errors.tolist() if errors is not None else None}, launches {launches}, "
           f"wall {wall:.3f} s")
@@ -1629,7 +1632,7 @@ def run_evaluate_depth(device, args=ENDODAC_VITB, n_frames=16, h=512, w=640):
     require(launches["flash_attention"] == flash,
             f"evaluate_depth: {launches['flash_attention']} flash launches, expected {flash}")
     return {"name": "evaluate_depth " + " ".join(args), "launches": launches, "wall_s": wall,
-            "errors": errors.tolist()}
+            "ms_per_frame": wall * 1e3 / n_frames, "errors": errors.tolist()}
 
 
 def check_test_simple(device, args=ENDODAC_VITB, h=512, w=640):
@@ -2021,7 +2024,7 @@ def train_options(root, *extra):
     return EndoDAVOptions().parse([*TRAIN_FLAGS, "--data_path", root, *extra])
 
 
-def check_small_step(device, root, env=None, dtype="float32"):
+def check_small_step(device, root, env=None, dtype="float32", extra=()):
     """One training step of a small configuration on the card (kernels)
     and on the CPU (plain versions), from the same seed weights and the
     same loader batch, with ``env`` set for both steps; with ``dtype``
@@ -2032,7 +2035,7 @@ def check_small_step(device, root, env=None, dtype="float32"):
     from endodav_tpu_torch.train.trainer import Trainer
 
     args = ["--height", "64", "--width", "96", "--T", "4", "--depth_image_shape", "56", "70",
-            "--compute_dtype", dtype]
+            "--compute_dtype", dtype, *extra]
     bf16 = dtype == "bfloat16"
     gpu = own_policy("Trainer", Trainer, train_options(root, *args), device)
     cpu = own_policy("Trainer", Trainer, train_options(root, *args, "--no_cuda"))
@@ -2063,7 +2066,8 @@ def check_small_step(device, root, env=None, dtype="float32"):
         errs[f"update {label}"] = (pg.detach().cpu() - pc.detach())[sure].abs().max().item()
         require(errs[f"update {label}"] <= STEP_UPDATE_ATOL,
                 f"small step: updated {pname} differs by {errs[f'update {label}']}")
-    label = " ".join([f"{k}={v}" for k, v in (env or {}).items()] + [dtype] * bf16)
+    label = " ".join([f"{k}={v}" for k, v in (env or {}).items()] + [dtype] * bf16
+                     + list(extra))
     print(f"[small step {label}] card vs CPU, 64x96 T=4 ViT 56x70: losses card "
           f"{float(got['loss_0']):.6f}/{float(got['loss']):.6f}, errors {errs}")
     return errs
@@ -2456,7 +2460,7 @@ def run_training_script(device, root):
     eval CLI's metrics finite and its launches as the epoch eval's; the
     card's `temporal_metrics_sequence` against the CPU's on the same
     depths.  Returns the launches and the times."""
-    from endodav_tpu_torch.cli import evaluate_depth_video_pose, train_end_to_end_video
+    from endodav_tpu_torch.cli import evaluate_depth_video_pose
     from endodav_tpu_torch.data.scared import ScaredVideos
     from endodav_tpu_torch.eval.metrics_device import temporal_metrics_sequence
     from endodav_tpu_torch.options import EndoDAVOptions
@@ -2466,41 +2470,16 @@ def run_training_script(device, root):
     print(f"[training script] synthetic SCARED tree with ground truth written in "
           f"{time.perf_counter() - t0:.1f} s")
     log_dir = os.path.join(root, "log")
+    n_seq = len([n for n, gt in SCRIPT_SEQUENCES if gt])
+    trainer, folder, run = run_script_training(device, "training script", data, splits, n_seq,
+                                               log_dir, SCRIPT_TRAIN_FLAGS, "endodav",
+                                               min_steps=4)
+    steps, val_ms, evals, saves = (run["record"][k] for k in ("steps", "val_ms", "evals",
+                                                                "saves"))
+    launches, serving, train_args = run["launches"], run["serving"], run["args"]
+    train_s, peak = run["train_s"], run["peak_bytes"]
     counters = _kernel_counters()
-    train_args = [*SCRIPT_TRAIN_FLAGS, "--data_path", data, "--log_dir", log_dir,
-                  "--num_epochs", "1", "--log_frequency", "2"]
     with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
-        with instrumented_trainer(device) as rec:
-            for fn in counters.values():
-                fn.launches = 0
-            torch.cuda.reset_peak_memory_stats(device)
-            t0 = time.perf_counter()
-            trainer = own_policy("train_end_to_end_video", train_end_to_end_video.main,
-                                 train_args)
-            train_s = time.perf_counter() - t0
-        steps, vals, val_ms = rec["steps"], rec["vals"], rec["val_ms"]
-        evals, saves = rec["evals"], rec["saves"]
-        launches = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated(device)
-        print(f"[training script] train_end_to_end_video {' '.join(train_args)}: "
-              f"{len(steps)} steps, losses {[(round(s['loss'], 6), round(s['loss_0'], 6)) for s in steps]}, "
-              f"step ms {[round(s['ms'], 1) for s in steps]}, val scores {vals}, launches "
-              f"{launches}")
-        require(len(steps) == len(trainer.train_loader) >= 4,
-                f"training script: {len(steps)} steps, expected the epoch's "
-                f"{len(trainer.train_loader)} (4 or more)")
-        require(all(np.isfinite([s["loss"], s["loss_0"]]).all() for s in steps),
-                "training script: a step's loss is not finite")
-        require(len(vals) == -(-len(steps) // 2) and np.isfinite(vals).all(),
-                f"training script: val scores {vals}")
-        n_seq = len([n for n, gt in SCRIPT_SEQUENCES if gt])
-        serving, _ = expected_serving_launches(
-            trainer.opt, trainer.eval_forward(), [{"colors": range(SCRIPT_FRAMES)}] * n_seq)
-        expect = {k: n * len(steps) + VAL_LAUNCHES.get(k, 0) * len(vals) + serving.get(k, 0)
-                  for k, n in STEP_LAUNCHES.items()}
-        require(launches == expect, f"training script: launches {launches}, expected {expect}")
-
-        folder = os.path.join(log_dir, "endodav", "models", "weights_last")
         results = open(os.path.join(log_dir, "endodav", "models", "results.txt")).read()
         print(f"[training script] results.txt: {results.strip()}")
         require(results.count("Epoch 01:") == 1, "training script: no results line")
@@ -3011,6 +2990,32 @@ def captured_stdout():
         sys.stdout.write(buf.getvalue())
 
 
+def run_cli(label, run, opt, n_frames):
+    """``run()``, a CLI on ``opt``, with the serving kernels' counts set to
+    0 just before and read just after: the launches
+    `expected_serving_launches` gives for sequences of ``n_frames`` frames.
+    Returns the CLI's result, its standard output, its seconds and the
+    launches."""
+    from endodav_tpu_torch.eval import engine
+
+    counters = _serving_counters()
+    made, real = [], engine.depth_window_forward
+    engine.depth_window_forward = lambda model: made.append(real(model)) or made[-1]
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        t = time.perf_counter()
+        with captured_stdout() as out:
+            result = own_policy(label, run)
+        seconds = time.perf_counter() - t
+    finally:
+        engine.depth_window_forward = real
+    launches = {k: fn.launches for k, fn in counters.items()}
+    expect, _ = expected_serving_launches(opt, made[-1], [{"colors": range(n)} for n in n_frames])
+    require(launches == expect, f"{label}: launches {launches}, expected {expect}")
+    return result, out.getvalue(), seconds, launches
+
+
 def run_hamlyn_script(device, root, weights):
     """`scripts/eval_depth_video1.sh`'s command on the card
     (`cli/evaluate_depth_video_hamlyn`, `HAMLYN_EVAL_FLAGS`) on the
@@ -3023,7 +3028,6 @@ def run_hamlyn_script(device, root, weights):
     model run's), and the model run with ``--max_length 32`` (32 frames a
     sequence, its launches).  Returns the launches and the times."""
     from endodav_tpu_torch.cli import evaluate_depth_video_hamlyn as cli
-    from endodav_tpu_torch.eval import engine
     from endodav_tpu_torch.options import EndoDAVOptions
 
     t0 = time.perf_counter()
@@ -3031,24 +3035,12 @@ def run_hamlyn_script(device, root, weights):
     print(f"[hamlyn] synthetic Hamlyn tree ({len(names)} x {HAMLYN_FRAMES} frames of "
           f"{HAMLYN_HW[0]}x{HAMLYN_HW[1]}) written in {time.perf_counter() - t0:.1f} s")
     counters = _serving_counters()
-    made, real_forward = [], engine.depth_window_forward
     totals = dict.fromkeys(counters, 0)
 
     def model_run(args, n_frames):
-        engine.depth_window_forward = lambda model: made.append(real_forward(model)) or made[-1]
-        for fn in counters.values():
-            fn.launches = 0
-        try:
-            t = time.perf_counter()
-            with captured_stdout() as out:
-                result = own_policy("evaluate_depth_video_hamlyn", cli.main, args)
-            seconds = time.perf_counter() - t
-        finally:
-            engine.depth_window_forward = real_forward
-        launches = {k: fn.launches for k, fn in counters.items()}
-        expect, _ = expected_serving_launches(EndoDAVOptions().parse(args), made[-1],
-                                              [{"colors": range(n_frames)}] * len(names))
-        require(launches == expect, f"hamlyn {args}: launches {launches}, expected {expect}")
+        result, out, seconds, launches = run_cli(
+            "evaluate_depth_video_hamlyn", lambda: cli.main(args), EndoDAVOptions().parse(args),
+            [n_frames] * len(names))
         require(np.isfinite(result["mean_errors"]).all() and result["mean_temporal"] is None,
                 f"hamlyn {args}: metrics {result['mean_errors']}")
         require(result["all_errors"].shape == (len(names) * n_frames, 7),
@@ -3056,7 +3048,7 @@ def run_hamlyn_script(device, root, weights):
                 f"{len(names) * n_frames}")
         for k in totals:
             totals[k] += launches[k]
-        return result, out.getvalue(), seconds, launches
+        return result, out, seconds, launches
 
     with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
         args = [*HAMLYN_EVAL_FLAGS, "--data_path", data, "--load_weights_folder", weights]
@@ -3200,6 +3192,594 @@ def run_pose_tools(device, data, splits, weights, hamlyn):
           f"{recon_s:.1f} s, {plys}, {head[2].strip()} ({card_line()})")
     return {"export_s": export_s, "pose_s": pose_s, "ms_per_pair": pose_s / n_pairs * 1e3,
             "plot_s": plot_s, "recon_s": recon_s}
+
+
+# ---------------------------------------------------------------------------
+# The bottleneck ResNets, vitg and the shipped scripts run nowhere above.
+
+# scripts/train_video.sh's training flags exactly with --num_layers 50: the
+# position, transform and pose encoders become ResNet-50 (2048-channel top
+# maps), which changes no kernel's launches a step (STEP_LAUNCHES)
+R50_FLAGS = [*SSB_TRAIN_FLAGS, "--num_layers", "50"]
+R50_STEPS = 2
+# ResNet-101 and 152: one forward and backward of three encoders (as the
+# trainer builds them: frame pairs) on a pair of 64x80, card against
+# CPU, in eval mode: each BatchNorm is then affine, where in train mode at
+# such sizes one over a few values a channel makes f32 rounding the result
+# (tests/test_torch_train_resnet50.py); see check_deep_encoders for the
+# bounds
+DEEP_DEPTHS, DEEP_HW, DEEP_GRAD_RTOL = (101, 152), (64, 80), 2e-2
+# vitg (no option selects it, as in JAX): the whole 40-block trunk at
+# 518x644 on VITG_FRAMES frames, f32 and bf16, with and without the fused
+# MLP; card against CPU on one 56x70 frame at 4 taps.  f32 tokens within
+# VITG_TOL of max(1, their largest): 40 blocks of 1536-wide sums, the card's
+# in 3xTF32 (rows 1 and 5) and cuBLAS's order
+VITG_TAPS, VITG_CPU_HW, VITG_TOL, VITG_ITERS = (9, 19, 29, 39), (56, 70), 1e-3, 2
+# scripts/train_video2.sh:9-15 and :17-20, scripts/train_video1.sh:10-17 and
+# :19-22 exactly; train_video1.sh's eval command leaves out the two flags
+# its training set (TV1_MISSING), and both packages refuse weights_last at
+# the first dvlora layer (tests/test_torch_script_train_video1.py); the
+# phase runs the command as written, then with the two flags added
+TV2_TRAIN_FLAGS = ["--model_type", "endodav", "--num_workers", "4", "--batch_size", "1",
+                   "--T", "16", "--encoder", "vits", "--disable_residual_block",
+                   "--disable_conv_head", "--scales", "0", "--depth_reproj", "1e-3",
+                   "--depth_flow", "1e-3"]
+TV2_EVAL_FLAGS = ["--model_type", "endodav", "--eval_split", "scared_video", "--eval_mono",
+                  "--visualize_depth", "--disable_residual_block", "--disable_conv_head"]
+TV1_TRAIN_FLAGS = ["--model_type", "endodav", "--num_workers", "4", "--batch_size", "1",
+                   "--T", "16", "--encoder", "vits", "--disable_residual_block",
+                   "--disable_conv_head", *SSB, "--warm_up_step", "200000", "--visualize_depth",
+                   "--depth_reproj", "1e-4", "--temporal_lora", "--tune_spatial_interval", "400",
+                   "--tune_temporal_interval", "100"]
+TV1_EVAL_FLAGS = TV2_EVAL_FLAGS
+TV1_MISSING = [*SSB, "--temporal_lora"]
+# scripts/train_video_dac2.sh:10-13 (its training block is commented out
+# upstream: the phase's EndoDAC trainer, train_video_dac1.sh's batches with
+# the eval's two model flags and the conv head the eval builds, writes
+# weights_9)
+DAC2_EVAL_FLAGS = ["--model_type", "endodac", "--eval_split", "scared_video", "--eval_mono",
+                   "--visualize_depth", "--pre_norm", "--disable_residual_block"]
+DAC2_TRAIN_FLAGS = ["--model_type", "endodac", "--batch_size", "16", "--T", "1", "--encoder",
+                    "vits", "--pre_norm", "--disable_residual_block"]
+# scripts/eval_depth_video.sh:7-9 and :11-13: the default EndoDAV (dvlora,
+# residual blocks 2, 5, 8, 11, the conv head)
+EVAL_SH_POSE_FLAGS = ["--model_type", "endodav", "--eval_split", "scared_video", "--eval_mono"]
+EVAL_SH_HAMLYN_FLAGS = ["--model_type", "endodav", "--eval_split", "hamlyn_video", "--eval_mono"]
+# scripts/eval_depth_video_scared_npy.sh:6-7 and scripts/export_gt_depth.sh:
+# 8-11 with the root wrapper's --what depth (export_gt_depth.py:6)
+SCARED_NPY_FLAGS = ["--eval_split", "scared_video"]
+EXPORT_DEPTH_FLAGS = ["--split", "endovis_video", "--useage", "eval", "--what", "depth"]
+
+
+def save_pose_stack(trainer, folder):
+    """The trainer's pose encoder, pose decoder and intrinsics head, the
+    components `cli/evaluate_pose` reads, written with the trainer's codec."""
+    from endodav_tpu_torch.utils.checkpoint import save_components
+
+    save_components(folder, {n: trainer.mods[n] for n in ("pose_encoder", "pose",
+                                                          "intrinsics_head")})
+
+
+def run_resnet50_training(device, root, pose_folder):
+    """`scripts/train_video.sh`'s training with ``--num_layers 50`` at full
+    width on the synthetic tree, R50_STEPS steps in f32 and in bf16: three
+    ResNet-50 encoders, each step's launches STEP_LAUNCHES, the pose
+    decoder on the 2048-channel map; ms/step (step 2) and peak memory.  The
+    f32 trainer's pose stack goes to ``pose_folder`` for the pose eval."""
+    from endodav_tpu_torch.eval.engine import splits_dir
+
+    legs = {}
+    for dtype in ("float32", "bfloat16"):
+        trainer = depth_trainer(device, root, splits_dir(), R50_FLAGS, "--compute_dtype", dtype)
+        encoders = [trainer.mods[k].encoder for k in ("position_encoder", "transform_encoder",
+                                                      "pose_encoder")]
+        require(all(e.layer4[-1].conv3.out_channels == 2048 for e in encoders)
+                and trainer.mods["pose"].convs["squeeze"].in_channels == 2048,
+                "resnet50 training: the encoders are not ResNet-50")
+        watch = {k: dict(trainer.mods[k].named_parameters())["encoder.layer4.2.conv3.weight"]
+                 for k in ("position_encoder", "pose_encoder")}
+        before = {k: p.detach().clone() for k, p in watch.items()}
+        label = f"train resnet50 {dtype}"
+        r = train_steps(device, trainer, label, first_batches(trainer, R50_STEPS), STEP_LAUNCHES)
+        moved = {k: not torch.equal(before[k], p.detach()) for k, p in watch.items()}
+        require(all(moved.values()), f"{label}: an encoder's layer4 did not move: {moved}")
+        r["ms_per_step"] = r["step_ms"][-1]
+        print(f"[{label}] {' '.join(R50_FLAGS)}: step ms {[round(t, 1) for t in r['step_ms']]}, "
+              f"peak memory of step {R50_STEPS} {r['peak_bytes'] / 2 ** 30:.2f} GiB, layer4 "
+              f"moved {moved} ({card_line()})")
+        if dtype == "float32":
+            save_pose_stack(trainer, pose_folder)
+        legs[dtype] = r
+        del trainer
+    return legs
+
+
+def check_deep_encoders(device, depths=DEEP_DEPTHS, hw=DEEP_HW):
+    """ResNet-101 and 152: three encoders of frame pairs (seeded weights),
+    one eval-mode forward of a pair and a backward of a seeded cotangent on
+    the five maps, on the card (the f32 policy) against the CPU in float64:
+    each map within TOL[f32] of its largest entry, the encoder's whole
+    gradient (every parameter's, as one vector) within DEEP_GRAD_RTOL in
+    the 2-norm.  A ReLU whose input sits within rounding of 0 takes either
+    side in f32, and a deep net's gradient carries that in a few entries:
+    against float64 single parameters' gradients sat up to 3.9% from their
+    own largest entry, alike on the card (NVIDIA H100 80GB HBM3, 700 W)
+    and on the CPU with and without oneDNN, and a card entry reached
+    3.2e-2 of the encoder's largest; in the 2-norm the CPU's f32 stays
+    within 3.0e-3 at these inputs (where its largest entry error is 2.65e-2
+    of the largest gradient entry), and a wrong block moves the gradient
+    by its own size.  The largest entry's error is printed.  Returns the
+    errors and the card's ms of a forward and backward of the three."""
+    from endodav_tpu_torch.eval.engine import init_random_
+    from endodav_tpu_torch.models.resnet import ResNetEncoder
+    from endodav_tpu_torch.utils.precision import set_f32_policy
+
+    own_policy("set_f32_policy", set_f32_policy)
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, *hw, 6)).astype(np.float32))
+    out = {}
+
+    def pass_(model, inp, cot):
+        maps = model(inp, train=False)
+        sum((m * c.to(m)).sum() for m, c in zip(maps, cot)).backward()
+        return ([m.detach().cpu().double() for m in maps],
+                torch.cat([p.grad.cpu().double().flatten() for p in model.parameters()]))
+
+    for depth in depths:
+        errs = {"maps": 0.0, "grads": 0.0, "grad_entry": 0.0}
+        card_ms = 0.0
+        for k in range(3):  # the position, transform and pose encoders
+            cpu = init_random_(ResNetEncoder(depth, num_input_images=2), SEED + k).eval()
+            ref = ResNetEncoder(depth, num_input_images=2, dtype=torch.float64).eval()
+            ref.load_state_dict(cpu.state_dict())
+            gpu = cpu.to(device)
+            shapes = [m.shape for m in ref.double()(x.double(), train=False)]
+            cot = [torch.from_numpy(rng.standard_normal(s)) for s in shapes]
+            maps64, grads64 = pass_(ref, x.double(), cot)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            maps, grads = pass_(gpu, x.to(device), cot)
+            torch.cuda.synchronize(device)
+            card_ms += (time.perf_counter() - t0) * 1e3
+            errs["maps"] = max([errs["maps"]] + [_rel_err(g, w) for g, w in zip(maps, maps64)])
+            errs["grads"] = max(errs["grads"], ((grads - grads64).norm()
+                                                / grads64.norm()).item())
+            errs["grad_entry"] = max(errs["grad_entry"], _rel_err(grads, grads64))
+            del cpu, ref, gpu
+        print(f"[resnet{depth}] three encoders, a forward and backward of a pair of "
+              f"{hw[0]}x{hw[1]} in eval mode, against the CPU in float64: maps {errs['maps']:.3e} "
+              f"of their largest entry, the gradient {errs['grads']:.3e} in the 2-norm (its "
+              f"largest entry error {errs['grad_entry']:.3e} of the largest); card "
+              f"{card_ms:.1f} ms (first calls)")
+        require(errs["maps"] <= TOL[torch.float32] and errs["grads"] <= DEEP_GRAD_RTOL,
+                f"resnet{depth}: card vs CPU float64 {errs}")
+        out[depth] = dict(errs, card_ms=card_ms)
+    return out
+
+
+def run_vitg(device):
+    """vitg's whole trunk (`DinoViT(**VIT_CONFIGS["vitg"])`, seeded weights)
+    at 518x644 on VITG_FRAMES frames in f32 and bf16, each without and with
+    ENDODAV_FUSED_MLP=1: ms a frame (mean of VITG_ITERS warm forwards,
+    synchronised), peak memory and the launches of one forward (a flash
+    attention a block, 24 heads; a fused MLP a block with the flag, 1536 ->
+    6144 -> 1536 on a cluster of 6); card against CPU on one 56x70 frame
+    with the flag: f32 within VITG_TOL, bf16 against the CPU's f32 within
+    BF16_REL_MAX / BF16_REL_MEAN of the plain bf16 version's own error.
+    Returns the launches and the times."""
+    from endodav_tpu_torch.eval.engine import init_random_
+    from endodav_tpu_torch.models.vit import VIT_CONFIGS, DinoViT
+    from endodav_tpu_torch.utils.precision import set_f32_policy
+
+    counters = _serving_counters()
+    flash, mlp = counters["flash_attention"], counters["fused_mlp"]
+    cfg = VIT_CONFIGS["vitg"]
+    t0 = time.perf_counter()
+    cpu32 = init_random_(DinoViT(**cfg), SEED).eval()
+    cpu16 = DinoViT(**cfg, dtype=torch.bfloat16).eval()
+    cpu16.load_state_dict(cpu32.state_dict())
+    print(f"[vitg] {sum(p.numel() for p in cpu32.parameters()) / 1e9:.3f} B parameters, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    small = torch.from_numpy(rng.uniform(-1, 1, (1, *VITG_CPU_HW, 3)).astype(np.float32))
+    big = torch.from_numpy(rng.uniform(-1, 1, (VITG_FRAMES, 518, 644, 3)).astype(np.float32))
+    flat = lambda taps: torch.cat([torch.cat([t.flatten(), c.flatten()])  # noqa: E731
+                                   for t, c in taps]).float().cpu()
+    with _env({"ENDODAV_FUSED_MLP": "1"}), torch.inference_mode():
+        want = flat(cpu32(small, VITG_TAPS))
+        plain16 = flat(cpu16(small, VITG_TAPS))
+    own_policy("set_f32_policy", set_f32_policy)
+    models = {"float32": cpu32.to(device), "bfloat16": cpu16.to(device)}
+    legs, launches = {}, {"flash_attention": 0, "fused_mlp": 0}
+    bf16_launches = dict(launches)
+    for dtype, model in models.items():
+        with _env({"ENDODAV_FUSED_MLP": "1"}), torch.inference_mode():
+            got = flat(model(small.to(device), VITG_TAPS))
+        if dtype == "float32":
+            err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+            require(np.isfinite(err) and err <= VITG_TOL,
+                    f"vitg f32: card vs CPU {err} of max(1, the largest token)")
+            agree = {"card_vs_cpu": err}
+        else:
+            card = ((got - want).abs().max().item(), (got - want).abs().mean().item())
+            own = ((plain16 - want).abs().max().item(), (plain16 - want).abs().mean().item())
+            require(np.isfinite(card[0]) and card[0] <= BF16_REL_MAX * own[0]
+                    and card[1] <= BF16_REL_MEAN * own[1],
+                    f"vitg bf16: card vs CPU f32 (max, mean) {card}, plain bf16's {own}")
+            agree = {"card_vs_cpu_f32": card, "plain_bf16_vs_cpu_f32": own}
+        x = big.to(device)
+        for fused in (False, True):
+            env = {"ENDODAV_FUSED_MLP": "1" if fused else "0"}
+            with _env(env), torch.inference_mode():
+                model(x, VITG_TAPS)  # warm
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                times = []
+                for _ in range(VITG_ITERS):
+                    for fn in (flash, mlp):
+                        fn.launches = 0
+                    t = time.perf_counter()
+                    model(x, VITG_TAPS)
+                    torch.cuda.synchronize(device)
+                    times.append((time.perf_counter() - t) * 1e3 / VITG_FRAMES)
+                    seen = {"flash_attention": flash.launches, "fused_mlp": mlp.launches}
+                    want_launches = {"flash_attention": cfg["depth"],
+                                     "fused_mlp": cfg["depth"] if fused else 0}
+                    require(seen == want_launches,
+                            f"vitg {dtype} fused={fused}: launches {seen}, expected "
+                            f"{want_launches}")
+                    for k in seen:
+                        (launches if dtype == "float32" else bf16_launches)[k] += seen[k]
+            peak = torch.cuda.max_memory_allocated(device)
+            name = f"{dtype}{' ENDODAV_FUSED_MLP=1' if fused else ''}"
+            legs[name] = {"ms_per_frame": statistics.mean(times), "peak_bytes": peak, **agree}
+            print(f"[vitg] {name}: {VITG_FRAMES} frames 518x644, {legs[name]['ms_per_frame']:.2f} "
+                  f"ms/frame (mean of {VITG_ITERS}), peak {peak / 2 ** 30:.2f} GiB, launches "
+                  f"{seen}, {agree} ({card_line()})")
+        del x
+    del models, cpu32, cpu16
+    torch.cuda.empty_cache()
+    return {"legs": legs, "launches": launches, "bf16_launches": bf16_launches}
+
+
+def script_split(root, train, evaluated):
+    """A split directory whose ``scared_video/train_files.txt`` names
+    ``train`` and whose val and test lists name ``evaluated``: the scripts'
+    trainings and evals cut to those sequences (the trainer's `val` and
+    epoch eval both read the val list)."""
+    splits = os.path.join(root, "splits_" + os.urandom(4).hex())
+    os.makedirs(os.path.join(splits, "scared_video"))
+    for split, names in (("train", train), ("val", evaluated), ("test", evaluated)):
+        with open(os.path.join(splits, "scared_video", f"{split}_files.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return splits
+
+
+def run_script_training(device, label, data, splits, n_eval, log_dir, flags, model_dir,
+                        min_steps=2):
+    """The training CLI's `main` with a script's ``flags`` for one epoch over
+    the split directory ``splits`` (its test sequences: ``n_eval`` of
+    SCRIPT_FRAMES frames), a log (scalars, panels and `val`) every 2
+    batches: every step's losses finite, each kernel's launches
+    STEP_LAUNCHES a step, VAL_LAUNCHES a `val` and the epoch eval's
+    (`expected_serving_launches`), ``weights_last`` written.  Returns the
+    trainer, ``weights_last`` and the record (with the CLI's arguments,
+    `instrumented_trainer`'s record and the epoch eval's launches)."""
+    from endodav_tpu_torch.cli import train_end_to_end_video
+
+    counters = _kernel_counters()
+    args = [*flags, "--data_path", data, "--log_dir", log_dir, "--num_epochs", "1",
+            "--log_frequency", "2"]
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        with instrumented_trainer(device) as rec:
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            trainer = own_policy("train_end_to_end_video", train_end_to_end_video.main, args)
+            train_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    steps, vals = rec["steps"], rec["vals"]
+    print(f"[{label}] train_end_to_end_video {' '.join(flags)}: {len(steps)} steps, losses "
+          f"{[(round(s['loss'], 6), round(s['loss_0'], 6)) for s in steps]}, step ms "
+          f"{[round(s['ms'], 1) for s in steps]}, val {vals}, launches {launches}")
+    require(len(steps) == len(trainer.train_loader) >= min_steps,
+            f"{label}: {len(steps)} steps, expected the epoch's {len(trainer.train_loader)} "
+            f"({min_steps} or more)")
+    require(all(np.isfinite([s["loss"], s["loss_0"]]).all() for s in steps),
+            f"{label}: a step's loss is not finite")
+    require(len(vals) == -(-len(steps) // 2) and np.isfinite(vals).all(),
+            f"{label}: val scores {vals}")
+    serving, _ = expected_serving_launches(trainer.opt, trainer.eval_forward(),
+                                           [{"colors": range(SCRIPT_FRAMES)}] * n_eval)
+    expect = {k: n * len(steps) + VAL_LAUNCHES.get(k, 0) * len(vals) + serving.get(k, 0)
+              for k, n in STEP_LAUNCHES.items()}
+    require(launches == expect, f"{label}: launches {launches}, expected {expect}")
+    folder = os.path.join(log_dir, model_dir, "models", "weights_last")
+    require(os.path.exists(os.path.join(folder, "depth_model.msgpack")),
+            f"{label}: no weights_last")
+    ms = statistics.median(s["ms"] for s in steps[1:])
+    print(f"[{label}] {ms:.1f} ms/step (median of steps 2-{len(steps)}), the training CLI "
+          f"{train_s:.1f} s, peak memory {peak / 2 ** 30:.2f} GiB ({card_line()})")
+    return trainer, folder, {"launches": launches, "ms_per_step": ms, "train_s": train_s,
+                             "steps": len(steps), "peak_bytes": peak, "args": args,
+                             "record": rec, "serving": serving}
+
+
+def _finite_pose_eval(label, result, n_seq):
+    depth = result["depth"]
+    metrics = np.concatenate([depth["mean_errors"], depth["mean_temporal"]])
+    pose = [(r["ate_mean"], r["re_mean"]) for r in result["pose"]]
+    require(np.isfinite(metrics).all() and np.isfinite(pose).all() and len(pose) == n_seq,
+            f"{label}: metrics {metrics}, pose {pose}")
+    return metrics, pose
+
+
+def _add(total, launches):
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def run_train_video2_script(device, data, root):
+    """`scripts/train_video2.sh`'s two commands on the card, cut to the
+    tree's two sequences with ground truth (train, val and test: `val`'s
+    clips of T=16 need both): the training CLI with its flags exactly (one scale: the warps of all scales
+    go in one launch a kind, so a step's launches stay STEP_LAUNCHES), then
+    `evaluate_depth_video --visualize_depth` on ``weights_last``: finite
+    metrics, the serving launches, each sequence's aligned depth .npy files
+    (and vis.mp4, or JAX's line where the mp4 writer fails); then
+    `scripts/eval_depth_video_scared_npy.sh` on those files: no launch, the
+    seven metrics within HAMLYN_RESCORE_RTOL of the model run's."""
+    from endodav_tpu_torch.cli import evaluate_depth_video
+    from endodav_tpu_torch.options import EndoDAVOptions
+
+    seqs = [n for n, gt in SCRIPT_SEQUENCES if gt]
+    splits = script_split(root, seqs, seqs)
+    trainer, folder, rec = run_script_training(device, "train_video2.sh", data, splits,
+                                               len(seqs), os.path.join(root, "log_tv2"),
+                                               TV2_TRAIN_FLAGS, "endodav")
+    require(trainer.loss_cfg["scales"] == (0,), "train_video2.sh: not one scale")
+    del trainer
+    total = dict(rec["launches"])
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        opt = EndoDAVOptions().parse([*TV2_EVAL_FLAGS, "--data_path", data,
+                                      "--load_weights_folder", folder])
+        result, out, cli_s, launches = run_cli("evaluate_depth_video",
+                                               lambda: evaluate_depth_video.evaluate(opt), opt,
+                                               [SCRIPT_FRAMES] * len(seqs))
+        _add(total, launches)
+        require(np.isfinite(result["mean_errors"]).all(),
+                f"train_video2.sh eval: metrics {result['mean_errors']}")
+        saved = os.path.join(folder, "eval", "scared_video")
+        for name in seqs:
+            npys = sorted(os.listdir(os.path.join(saved, name, "depth")))
+            require(npys == [f"{i:06d}.npy" for i in range(SCRIPT_FRAMES)],
+                    f"train_video2.sh eval: {name} saved {len(npys)} depth files")
+            require(os.path.exists(os.path.join(saved, name, "vis.mp4"))
+                    or "[eval] mp4 export failed" in out, f"train_video2.sh eval: {name} vis.mp4")
+        print(f"[train_video2.sh] evaluate_depth_video {' '.join(TV2_EVAL_FLAGS)}: metrics "
+              f"{result['mean_errors'].tolist()}, launches {launches}, the CLI {cli_s:.1f} s")
+        counters = _serving_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rescore = evaluate_depth_video.evaluate(EndoDAVOptions().parse(
+            ["--data_path", data, *SCARED_NPY_FLAGS, "--pred_root", saved]))
+        rescore_s = time.perf_counter() - t
+    rel = np.abs(rescore["mean_errors"] - result["mean_errors"]) / np.abs(result["mean_errors"])
+    print(f"[eval_depth_video_scared_npy.sh] --pred_root: metrics "
+          f"{rescore['mean_errors'].tolist()}, relative to the model run {rel.tolist()}, "
+          f"{rescore_s:.1f} s")
+    require(not any(fn.launches for fn in counters.values()), "--pred_root launched a kernel")
+    require(float(rel.max()) <= HAMLYN_RESCORE_RTOL,
+            f"scared --pred_root: metrics relative {rel} to the model run's")
+    return dict(rec, launches=total, cli_s=cli_s, rescore_s=rescore_s, rescore_rel=float(rel.max()))
+
+
+def run_train_video1_script(device, data, root):
+    """`scripts/train_video1.sh`'s two commands on the card, cut to the
+    tree's two sequences with ground truth: the training CLI with its flags
+    exactly; its eval command as written refuses ``weights_last`` at the
+    first dvlora layer, as JAX's does (tests/test_torch_script_train_video1
+    .py); with TV1_MISSING added, `evaluate_depth_video_pose`: finite metrics
+    and the serving launches."""
+    from endodav_tpu_torch.cli import evaluate_depth_video_pose
+    from endodav_tpu_torch.options import EndoDAVOptions
+
+    seqs = [n for n, gt in SCRIPT_SEQUENCES if gt]
+    splits = script_split(root, seqs, seqs)
+    trainer, folder, rec = run_script_training(device, "train_video1.sh", data, splits,
+                                               len(seqs), os.path.join(root, "log_tv1"),
+                                               TV1_TRAIN_FLAGS, "endodav")
+    require(trainer.loss_cfg["depth_reproj"] == 1e-4 and trainer.sched_cfg["temporal_lora"],
+            "train_video1.sh: flags not taken")
+    del trainer
+    total = dict(rec["launches"])
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        exact = EndoDAVOptions().parse([*TV1_EVAL_FLAGS, "--data_path", data,
+                                        "--load_weights_folder", folder])
+        try:
+            evaluate_depth_video_pose.evaluate(exact)
+        except ValueError as e:
+            require("lora_U" in str(e) and "pretrained/blocks_0/mlp/fc1" in str(e),
+                    f"train_video1.sh eval command: {e}")
+            print(f"[train_video1.sh] the eval command as written refuses weights_last, as "
+                  f"JAX's: {e}")
+        else:
+            require(False, "train_video1.sh eval command: dvlora loaded ssb's weights")
+        opt = EndoDAVOptions().parse([*TV1_EVAL_FLAGS, *TV1_MISSING, "--data_path", data,
+                                      "--load_weights_folder", folder])
+        result, _, cli_s, launches = run_cli(
+            "evaluate_depth_video_pose", lambda: evaluate_depth_video_pose.evaluate(opt), opt,
+            [SCRIPT_FRAMES] * len(seqs))
+    _add(total, launches)
+    metrics, pose = _finite_pose_eval("train_video1.sh eval", result, len(seqs))
+    print(f"[train_video1.sh] evaluate_depth_video_pose {' '.join(TV1_EVAL_FLAGS)} with "
+          f"{' '.join(TV1_MISSING)} added: depth and TAE/TAS {metrics.tolist()}, (ATE, RE) "
+          f"{pose}, launches {launches}, the CLI {cli_s:.1f} s")
+    return dict(rec, launches=total, cli_s=cli_s)
+
+
+def run_dac2_script(device, root):
+    """`scripts/train_video_dac2.sh`'s command on the card on the dac1 tree:
+    the EndoDAC trainer at DAC2_TRAIN_FLAGS (the eval's model) takes one step (SINGLE_STEP_LAUNCHES) and writes ``weights_9`` at epoch
+    9, then `evaluate_depth_video_pose` with the script's flags exactly:
+    finite metrics and the single-frame serving launches."""
+    from endodav_tpu_torch.cli import evaluate_depth_video_pose
+    from endodav_tpu_torch.options import EndoDAVOptions
+    from endodav_tpu_torch.train.trainer import Trainer
+
+    data, splits = os.path.join(root, "data"), os.path.join(root, "splits")
+    opt = EndoDAVOptions().parse([*DAC2_TRAIN_FLAGS, "--data_path", data,
+                                  "--log_dir", os.path.join(root, "log_dac2"), "--num_workers",
+                                  "2", "--seed", str(SEED)])
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        trainer = own_policy("Trainer", Trainer, opt, device)
+        model = trainer.mods["depth_model"]
+        require(model.config["pre_norm"] and not model.config["residual_block_indexes"],
+                "train_video_dac2.sh: the model flags were not taken")
+        step = train_steps(device, trainer, "train_video_dac2.sh", first_batches(trainer, 1),
+                           SINGLE_STEP_LAUNCHES, peak_from=1)
+        trainer.epoch = 9
+        folder = trainer.save_model("epoch")
+        require(folder.endswith(os.path.join("endodac", "models", "weights_9")),
+                f"train_video_dac2.sh: wrote {folder}")
+        del trainer
+        n_seq = len([n for n, gt in SCRIPT_SEQUENCES if gt])
+        eval_opt = EndoDAVOptions().parse([*DAC2_EVAL_FLAGS, "--data_path", data,
+                                           "--load_weights_folder", folder])
+        result, _, cli_s, launches = run_cli(
+            "evaluate_depth_video_pose", lambda: evaluate_depth_video_pose.evaluate(eval_opt),
+            eval_opt, [DAC1_FRAMES] * n_seq)
+    metrics, pose = _finite_pose_eval("train_video_dac2.sh", result, n_seq)
+    print(f"[train_video_dac2.sh] evaluate_depth_video_pose {' '.join(DAC2_EVAL_FLAGS)} on "
+          f"weights_9: depth and TAE/TAS {metrics.tolist()}, (ATE, RE) {pose}, launches "
+          f"{launches}, the CLI {cli_s:.1f} s ({card_line()})")
+    total = dict(step["launches"])
+    _add(total, launches)
+    return {"launches": total, "cli_s": cli_s, "step_ms": step["step_ms"]}
+
+
+def run_eval_depth_video_sh(device, data, hamlyn, root):
+    """`scripts/eval_depth_video.sh`'s two commands on the card on one
+    weights folder of the default EndoDAV (the engine's seeded weights) and
+    a seeded pose stack: `evaluate_depth_video_pose` on the SCARED tree's
+    first sequence with ground truth, then `evaluate_depth_video_hamlyn` on
+    the Hamlyn tree; finite metrics and each CLI's serving launches."""
+    from endodav_tpu_torch.cli import evaluate_depth_video_hamlyn, evaluate_depth_video_pose
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.models.decoders import IntrinsicsHead, PoseDecoder
+    from endodav_tpu_torch.models.resnet import ResNetEncoder
+    from endodav_tpu_torch.options import EndoDAVOptions
+    from endodav_tpu_torch.utils.checkpoint import save_components
+
+    model = own_policy("build_depth_model", engine.build_depth_model,
+                       eval_options(["--no_cuda"]), torch.device("cpu"))
+    require(model.lora_type == "dvlora" and model.config["residual_block_indexes"]
+            and model.config["conv_head"], "eval_depth_video.sh: not the default model")
+    folder = os.path.join(root, "weights_default")
+    save_components(folder, {
+        "depth_model": model,
+        "pose_encoder": engine.init_random_(ResNetEncoder(18, num_input_images=2), SEED),
+        "pose": engine.init_random_(PoseDecoder(512, num_frames_to_predict_for=2), SEED + 1),
+        "intrinsics_head": engine.init_random_(IntrinsicsHead(256), SEED + 2)},
+        metadata={"height": 256, "width": 320, "use_stereo": False, "dash_phase2": False})
+    del model
+    n_seq = 1
+    splits = script_split(root, [], [n for n, gt in SCRIPT_SEQUENCES if gt][:n_seq])
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        opt = EndoDAVOptions().parse([*EVAL_SH_POSE_FLAGS, "--data_path", data,
+                                      "--load_weights_folder", folder])
+        result, _, pose_s, pose_launches = run_cli(
+            "evaluate_depth_video_pose", lambda: evaluate_depth_video_pose.evaluate(opt), opt,
+            [SCRIPT_FRAMES] * n_seq)
+    metrics, pose = _finite_pose_eval("eval_depth_video.sh", result, n_seq)
+    hamlyn_splits = os.path.join(os.path.dirname(hamlyn["data"]), "splits_hamlyn")
+    with _env({"ENDODAV_TPU_SPLITS_DIR": hamlyn_splits}):
+        args = [*EVAL_SH_HAMLYN_FLAGS, "--data_path", hamlyn["data"], "--load_weights_folder",
+                folder]
+        hresult, _, hamlyn_s, hamlyn_launches = run_cli(
+            "evaluate_depth_video_hamlyn", lambda: evaluate_depth_video_hamlyn.main(args),
+            EndoDAVOptions().parse(args), [HAMLYN_FRAMES] * len(hamlyn["names"]))
+    require(np.isfinite(hresult["mean_errors"]).all(),
+            f"eval_depth_video.sh Hamlyn: metrics {hresult['mean_errors']}")
+    print(f"[eval_depth_video.sh] evaluate_depth_video_pose {' '.join(EVAL_SH_POSE_FLAGS)}: "
+          f"depth and TAE/TAS {metrics.tolist()}, (ATE, RE) {pose}, launches {pose_launches}, "
+          f"{pose_s:.1f} s; evaluate_depth_video_hamlyn {' '.join(EVAL_SH_HAMLYN_FLAGS)}: "
+          f"metrics {hresult['mean_errors'].tolist()}, {hresult['mean_infer_ms']:.3f} ms/frame, "
+          f"launches {hamlyn_launches}, {hamlyn_s:.1f} s ({card_line()})")
+    total = dict(pose_launches)
+    _add(total, hamlyn_launches)
+    return {"launches": total, "pose_s": pose_s, "hamlyn_s": hamlyn_s,
+            "hamlyn_ms_per_frame": hresult["mean_infer_ms"]}
+
+
+def run_export_gt_depth(data, root):
+    """`scripts/export_gt_depth.sh` (`cli/export_gt`, EXPORT_DEPTH_FLAGS)
+    over an ``endovis_video/test_files.txt`` of the tree's frames with
+    ground truth, written into a split directory of its own: the packed
+    depths finite, one a line, at the frames' size; the repository's
+    ``splits/`` unchanged."""
+    from endodav_tpu_torch.cli import export_gt
+
+    splits = os.path.join(root, "splits_export")
+    os.makedirs(os.path.join(splits, "endovis_video"))
+    folders = [n.split("/", 1)[1] for n, gt in SCRIPT_SEQUENCES if gt]
+    lines = [f"{folder}	{i}	l" for folder in folders for i in range(1, SCRIPT_FRAMES, 8)]
+    with open(os.path.join(splits, "endovis_video", "test_files.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    repo_split = os.path.join(os.path.dirname(os.path.abspath(__file__)), "splits",
+                              "endovis_video")
+    before = sorted(os.listdir(repo_split)) if os.path.isdir(repo_split) else None
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        t = time.perf_counter()
+        export_gt.main(["--data_path", data, *EXPORT_DEPTH_FLAGS])
+        seconds = time.perf_counter() - t
+    gt = np.load(os.path.join(splits, "endovis_video", "gt_depths.npz"))["data"]
+    after = sorted(os.listdir(repo_split)) if os.path.isdir(repo_split) else None
+    print(f"[export_gt_depth.sh] export_gt {' '.join(EXPORT_DEPTH_FLAGS)}: {gt.shape} "
+          f"{gt.dtype} in {seconds:.1f} s")
+    require(gt.shape == (len(lines), 512, 640) and np.isfinite(gt).all() and before == after,
+            f"export_gt_depth.sh: depths {gt.shape}, the repository's split {before} -> {after}")
+    return {"export_s": seconds}
+
+
+def run_pose_eval_r50(device, data, splits, weights):
+    """`cli/evaluate_pose --eval_mono --num_layers 50` on the ResNet-50
+    trainer's pose stack (``weights``), on the split the pose tools wrote:
+    the CLI builds `PoseDecoder(2048)` (once a sequence); finite ATE, RE and
+    intrinsics."""
+    from endodav_tpu_torch.cli import evaluate_pose
+    from endodav_tpu_torch.models import decoders
+
+    built, real = [], decoders.PoseDecoder
+
+    class Recording(real):
+        def __init__(self, num_ch_enc, *a, **k):
+            built.append(num_ch_enc)
+            super().__init__(num_ch_enc, *a, **k)
+
+    decoders.PoseDecoder = Recording
+    try:
+        with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+            t = time.perf_counter()
+            with captured_stdout() as out:
+                results = own_policy("evaluate_pose", evaluate_pose.main,
+                                     ["--data_path", data, "--load_weights_folder", weights,
+                                      "--eval_mono", "--num_layers", "50"])
+            seconds = time.perf_counter() - t
+    finally:
+        decoders.PoseDecoder = real
+    report = [ln for ln in out.getvalue().splitlines()
+              if ln.startswith(("sq", "fx", "fy", "cx", "cy"))]
+    require(built and set(built) == {2048} and sorted(results) == [1, 2] and all(
+        np.isfinite([r["ate_mean"], r["re_mean"]]).all() for r in results.values()),
+        f"evaluate_pose --num_layers 50: decoders {built}, {report}")
+    n_pairs = 2 * (SCRIPT_FRAMES - 2)
+    print(f"[pose tools] evaluate_pose --eval_mono --num_layers 50 {seconds:.1f} s, "
+          f"{seconds / n_pairs * 1e3:.2f} ms/pair with the nets' build: {report}")
+    return {"pose_s": seconds, "ms_per_pair": seconds / n_pairs * 1e3}
 
 
 # kernel-name fragments -> the categories of the profiles' breakdowns
@@ -3384,7 +3964,9 @@ def main() -> int:
                           expect={flash: 12, fused_mlp: 12, fused_rcu: RCU_PER_SUFFIX}),
         check_whole_model(device, ENDODAC, frames=4, env={"ENDODAV_FUSED_RCU": "1"},
                           expect={flash: 12, fused_rcu: 0}, rebuild=with_bn),
-        check_whole_model(device, AFSFM, frames=4, expect={flash: 0, fused_rcu: 0})))
+        check_whole_model(device, AFSFM, frames=4, expect={flash: 0, fused_rcu: 0}),
+        check_whole_model(device, [*AFSFM, "--num_layers", "50"], frames=4,
+                          expect={flash: 0, fused_rcu: 0})))
     # the LoRA family: ssb with its motion modules adapted too, Dash
     # in each phase (the engine's seed weights make its index and singular
     # directions nonzero), galora and flora (no CLI flag: rebuilt), EndoDAC
@@ -3409,6 +3991,7 @@ def main() -> int:
     whole_bf16.append(check_whole_model(device, SHIPPED_EVAL[:4], expect=window, **bf16))
     switch_rows = check_switches(device)
     test_simple_err = check_test_simple(device)
+    vitg = run_vitg(device)
 
     # one 64-frame sequence a leg: the host metrics of a 512x640 sequence
     # take most of a leg's wall time
@@ -3430,6 +4013,7 @@ def main() -> int:
     shipped_runs, shipped = run_shipped_eval(sequences, device)
     runs += shipped_runs
     evaluate_row = run_evaluate_depth(device)
+    afsfm50_row = run_evaluate_depth(device, [*AFSFM, "--num_layers", "50"], h=256, w=320)
     for r in runs:
         warm = (f", warm {r['warm_ms_per_frame']:.3f} (inference only)"
                 if "warm_ms_per_frame" in r else "")
@@ -3454,6 +4038,7 @@ def main() -> int:
     if "--profile-serving" in args:
         profile_serving(device, sequences[0], args[args.index("--profile-serving") + 1])
 
+    r50_weights = tempfile.TemporaryDirectory(prefix="resnet50_pose_", dir=os.getcwd())
     with tempfile.TemporaryDirectory(prefix="scared_synth_", dir=os.getcwd()) as root:
         t0 = time.perf_counter()
         write_scared_tree(root)
@@ -3461,6 +4046,9 @@ def main() -> int:
         check_small_step(device, root)
         check_small_step(device, root, env={"ENDODAV_WARP_CP": "1"})
         check_small_step(device, root, dtype="bfloat16")
+        check_small_step(device, root, extra=("--num_layers", "50"))
+        deep = check_deep_encoders(device)
+        r50 = run_resnet50_training(device, root, r50_weights.name)
         trace_dir = args[args.index("--profile-step") + 1] if "--profile-step" in args else None
         train = run_training(device, root, trace_dir=trace_dir)
         dash_errs = check_dash_boundary(device, root)
@@ -3481,10 +4069,18 @@ def main() -> int:
         # the scripts a user runs after training, on the weights it saved
         weights = os.path.join(root, "log", "endodav", "models", "weights_last")
         hamlyn = run_hamlyn_script(device, root, weights)
-        tools = run_pose_tools(device, os.path.join(root, "data"), os.path.join(root, "splits"),
-                               weights, hamlyn)
+        data, splits = os.path.join(root, "data"), os.path.join(root, "splits")
+        tools = run_pose_tools(device, data, splits, weights, hamlyn)
+        pose50 = run_pose_eval_r50(device, data, splits, r50_weights.name)
+        r50_weights.cleanup()
+        # the shipped scripts no other phase runs
+        tv2 = run_train_video2_script(device, data, root)
+        tv1 = run_train_video1_script(device, data, root)
+        eval_sh = run_eval_depth_video_sh(device, data, hamlyn, root)
+        export = run_export_gt_depth(data, root)
     with tempfile.TemporaryDirectory(prefix="training_dac1_", dir=os.getcwd()) as root:
         dac1 = run_dac1_script(device, root)
+        dac2 = run_dac2_script(device, root)
 
     def entry(name, source, replaces, launches, max_abs_err, head, shape, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3496,8 +4092,8 @@ def main() -> int:
         return next(r for r in rows if r["shape"] == shape and r["dtype"] == "float32")
 
     def served(name):
-        return sum(r["launches"][name]
-                   for r in runs + streams + bf16_legs + [baseline, evaluate_row, hamlyn])
+        return sum(r["launches"][name] for r in runs + streams + bf16_legs
+                   + [baseline, evaluate_row, afsfm50_row, hamlyn])
 
     def single_frame_shapes(rows, shapes):
         """The rows of the single-frame path's shapes (both dtypes)."""
@@ -3540,6 +4136,7 @@ def main() -> int:
               bf16_train_launches=bf16_trained["flash_attention"],
               single_frame=single_frame_shapes(flash_rows, ("B=8 N=321 H=6 Dh=64",
                                                             "B=8 N=321 H=12 Dh=64")),
+              vitg=single_frame_shapes(flash_rows, (f"B={VITG_FRAMES} N=1703 H=24 Dh=64",)),
               training=single_frame_shapes(flash_rows, ("B=16 N=321 H=6 Dh=64",
                                                         "B=8 N=321 H=12 Dh=64"))),
         # one route and one counter for both TPU kernels; the C >= 512
@@ -3577,7 +4174,9 @@ def main() -> int:
               head_of(mlp_rows, "rows=54496 384->1536->384"), "rows=54496 384->1536->384",
               bf16_launches=at_bf16("fused_mlp"), bf16_max_abs_err=bf16_err(mlp_rows),
               single_frame=single_frame_shapes(mlp_rows, ("rows=2568 384->1536->384",
-                                                          "rows=2568 768->3072->768"))),
+                                                          "rows=2568 768->3072->768")),
+              vitg=single_frame_shapes(mlp_rows, (f"rows={VITG_FRAMES * 1703} 1536->6144->1536",
+                                                  "rows=4096 2048->8192->2048"))),
         entry("fused_rcu", "endodav_tpu_torch/csrc/fused_rcu.cu",
               "endodav_tpu/kernels/fused_rcu.py:80", served("fused_rcu"), f32(rcu_rows),
               head_of(rcu_rows, "[32,148,184,64]"), "[32,148,184,64]",
@@ -3611,6 +4210,19 @@ def main() -> int:
               max(splat_row["err_occ"], splat_row["err_dx"], splat_row["err_dy"]), splat_row,
               splat_row["shape"]),
     ]
+    # the bottleneck ResNets', vitg's and the scripts' launches, f32 then bf16
+    extra, extra_bf16, extra_bf16_train = {}, {}, {}
+    for r in (r50["float32"], tv2, tv1, dac2, eval_sh, vitg):
+        _add(extra, r["launches"])
+    _add(extra_bf16, vitg["bf16_launches"])
+    _add(extra_bf16_train, r50["bfloat16"]["launches"])
+    for k in kernels:
+        k["launches"] += extra.get(k["name"], 0)
+        if "bf16_launches" in k:
+            k["bf16_launches"] += (extra_bf16.get(k["name"], 0)
+                                   + extra_bf16_train.get(k["name"], 0))
+        if "bf16_train_launches" in k:
+            k["bf16_train_launches"] += extra_bf16_train.get(k["name"], 0)
     require(len(kernels) == 13, f"{len(kernels)} kernel entries, expected 13")
     missing = [k["name"] for k in kernels if k["launches"] == 0
                and k["name"] != "grid_sample_bwd_fused_cp"]
@@ -3664,6 +4276,24 @@ def main() -> int:
           f"reconstruction {tools['recon_s']:.1f} s; RoPE ssb training step ms f32 "
           f"{[round(t, 1) for t in rope_train['float32']['step_ms']]} bf16 "
           f"{[round(t, 1) for t in rope_train['bfloat16']['step_ms']]} ({card})")
+    print(f"[summary] ResNet-50 (scripts/train_video.sh --num_layers 50): ms/step f32 "
+          f"{r50['float32']['ms_per_step']:.1f} bf16 {r50['bfloat16']['ms_per_step']:.1f}, peak "
+          f"f32 {r50['float32']['peak_bytes'] / 2 ** 30:.2f} GiB bf16 "
+          f"{r50['bfloat16']['peak_bytes'] / 2 ** 30:.2f} GiB; ResNet-101/152 card vs CPU "
+          f"{ {d: (v['maps'], v['grads']) for d, v in deep.items()} }; "
+          f"AF-SfM-50 evaluate_depth {afsfm50_row['ms_per_frame']:.3f} ms/frame; evaluate_pose "
+          f"--num_layers 50 {pose50['ms_per_pair']:.2f} ms/pair ({card})")
+    print(f"[summary] vitg 518x644, {VITG_FRAMES} frames, ms/frame: "
+          + ", ".join(f"{k} {v['ms_per_frame']:.2f} (peak {v['peak_bytes'] / 2 ** 30:.2f} GiB)"
+                      for k, v in vitg["legs"].items()) + f" ({card})")
+    print(f"[summary] train_video2.sh {tv2['ms_per_step']:.1f} ms/step, training CLI "
+          f"{tv2['train_s']:.1f} s, eval CLI {tv2['cli_s']:.1f} s, scared --pred_root "
+          f"{tv2['rescore_s']:.1f} s (within {tv2['rescore_rel']:.2e}); train_video1.sh "
+          f"{tv1['ms_per_step']:.1f} ms/step, training CLI {tv1['train_s']:.1f} s, eval CLI with "
+          f"{' '.join(TV1_MISSING)} {tv1['cli_s']:.1f} s; train_video_dac2.sh eval CLI "
+          f"{dac2['cli_s']:.1f} s; eval_depth_video.sh pose eval {eval_sh['pose_s']:.1f} s, "
+          f"Hamlyn {eval_sh['hamlyn_s']:.1f} s ({eval_sh['hamlyn_ms_per_frame']:.3f} ms/frame); "
+          f"export_gt_depth.sh {export['export_s']:.1f} s ({card})")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -43,7 +43,7 @@ def parse_args(args=None):
     p.add_argument("--temporal_lora", action="store_true")
     p.add_argument("--min_depth", type=float, default=0.1)
     p.add_argument("--max_depth", type=float, default=150.0)
-    p.add_argument("--num_layers", type=int, default=18, choices=[18, 34])
+    p.add_argument("--num_layers", type=int, default=18, choices=[18, 34, 50, 101, 152])
     p.add_argument("--scales", nargs="+", type=int, default=[0, 1, 2, 3])
     p.add_argument("--depth_image_shape", nargs=2, type=int, default=[224, 280])
     p.add_argument("--ext", type=str, default="png")

@@ -34,11 +34,12 @@
 //   - vits (C2 = 384): a cluster of 2 CTAs shares a 128-row tile, each
 //     with 192 output columns ([128, 192] f32: 96 registers a thread) and
 //     a 64-column slice of each 128-column hidden tile.
-//   - vitl (C2 = 1024; any even C2 up to 1024 but 384, on cl = C2/256
-//     rounded up): [BM, C2] does not fit one SM's registers, so a cluster
-//     of cl CTAs shares a 128-row tile and each CTA owns 256 output
-//     columns ([128, 256]: 128 registers a thread; columns past C2 get
-//     zero weights and are never stored).  Each CTA computes its 32-column
+//   - vitl (C2 = 1024; any C2 up to 1024 that is a multiple of 8 but 384,
+//     on cl = C2/256 rounded up): [BM, C2] does not fit one SM's
+//     registers, so a cluster of cl CTAs shares a 128-row tile and each
+//     CTA owns 256 output columns ([128, 256]: 128 registers a thread;
+//     columns past C2 get zero weights and are never stored).  Each CTA
+//     computes its 32-column
 //     slice of every hidden tile (HT = 32*cl) and stores it, through
 //     distributed shared memory, into the h buffer of every CTA of the
 //     cluster; after a cluster barrier each multiplies the whole tile by
@@ -48,6 +49,13 @@
 //     against ~109 GB for the SIMT kernel's 16-row blocks.  The barrier is
 //     split: a CTA arrives when it has read the tile's h and waits only
 //     before it writes the next one, after its fc1 products.
+//   - vitg (C2 = 1536, a cluster of 6) and any C2 above 1024 (cl = 5..8,
+//     up to Hopper's portable cluster size): the h tile [BM, 32*cl] grows
+//     with the cluster, and at 128 rows in f32 it would not fit 227 KB of
+//     shared memory beside the rings (cl = 6: 235 KB).  These clusters
+//     take 64-row tiles (`Tall`): half the h buffer and the x stages,
+//     [64, 256] accumulators (64 registers a thread), the weights read
+//     once per 64 rows.  A cluster of cl CTAs holds cl SMs, one CTA an SM.
 // Tiles of x, W1 and W2 reach shared memory by TMA (tma.cuh): one thread
 // issues a stage's loads, which land swizzled and signal an mbarrier.  Two
 // rings, one for the fc1 steps (x and W1, 128-byte rows) and one for the
@@ -88,7 +96,9 @@ struct MlpConfig {
   static_assert(MT2 * WM2_ * 16 == BM && NT2 * WN2_ * 8 == NC, "fc2 warp grid");
 };
 using Mid = MlpConfig<128, 192, 64, 4, 2, 2, 4>;   // C2 = 384, a cluster of 2
-using Wide = MlpConfig<128, 256, 32, 4, 2, 2, 4>;  // C2 <= 256*cl, a cluster of cl
+using Wide = MlpConfig<128, 256, 32, 4, 2, 2, 4>;  // C2 <= 256*cl, a cluster of cl <= 4
+using Tall = MlpConfig<64, 256, 32, 4, 2, 2, 4>;   // the same on 64 rows, cl = 5..8
+constexpr int WIDE_CL = 4, MAX_CL = 8;  // Hopper's portable cluster size
 
 // Shared memory: the fc1 ring (S1 stages of x [BM] and W1 hi (and lo)
 // [HTC] rows of 128 bytes: BK1 columns), the fc2 ring (S2 stages of W2 hi
@@ -289,19 +299,22 @@ int dispatch(const void* x, const void* w1h, const void* w1l, const float* b1, c
     return launch<T, Mid>(x, w1h, w1l, b1, w2h, w2l, b2, out, rows, c, hdim, c2, 2, s);
   }
   const int cl = (c2 + Wide::NC - 1) / Wide::NC;
-  if (c2 % 8 || cl < 1 || cl > 4 || hdim % (Wide::HTC * cl))
+  if (c2 % 8 || cl < 1 || cl > MAX_CL || hdim % (Wide::HTC * cl))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<T, Wide>(x, w1h, w1l, b1, w2h, w2l, b2, out, rows, c, hdim, c2, cl, s);
+  if (cl <= WIDE_CL)
+    return launch<T, Wide>(x, w1h, w1l, b1, w2h, w2l, b2, out, rows, c, hdim, c2, cl, s);
+  return launch<T, Tall>(x, w1h, w1l, b1, w2h, w2l, b2, out, rows, c, hdim, c2, cl, s);
 }
 
 }  // namespace
 
 // Widths the kernel takes (mirrored by kernels/fused_mlp.py:mlp_config):
 // C a multiple of 64; C2 = 384 (2 CTAs, H a multiple of 128) or any other
-// C2 up to 1024 that is a multiple of 8, on cl = ceil(C2/256) CTAs (H a
-// multiple of 32*cl).  w1 is [H, C] and w2 [C2, H]; for f32 w1h/w1l and
-// w2h/w2l are the TF32 hi and lo planes (for bf16 the lo pointers are the
-// hi ones again).  Returns the cudaError_t of the launch (0 on success).
+// C2 up to 2048 that is a multiple of 8, on cl = ceil(C2/256) CTAs (H a
+// multiple of 32*cl; 128-row tiles up to cl = 4, 64-row tiles above).  w1
+// is [H, C] and w2 [C2, H]; for f32 w1h/w1l and w2h/w2l are the TF32 hi
+// and lo planes (for bf16 the lo pointers are the hi ones again).  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int endodav_fused_mlp(int dtype, const void* x, const void* w1h, const void* w1l,
                                  const void* b1, const void* w2h, const void* w2l,
                                  const void* b2, void* out, int rows, int c, int hdim, int c2,

@@ -426,11 +426,13 @@ def evaluate_pose_pairs(opt, gt_local_poses, colors_pairs, pose_modules=None, nu
     device = resolve_device(opt) if device is None else device
     if pose_modules is None:
         from endodav_tpu_torch.models.decoders import IntrinsicsHead, PoseDecoder
-        from endodav_tpu_torch.models.resnet import ResNetEncoder
+        from endodav_tpu_torch.models.resnet import ResNetEncoder, resnet_num_ch_enc
         from endodav_tpu_torch.train.trainer import init_train_
 
+        # the top map's width, which flax takes from feats[-1] (JAX :546-549)
+        top = resnet_num_ch_enc(opt.num_layers)[-1]
         mods = init_train_({"pose_encoder": ResNetEncoder(opt.num_layers, num_input_images=2),
-                            "pose": PoseDecoder(512, num_frames_to_predict_for=2),
+                            "pose": PoseDecoder(top, num_frames_to_predict_for=2),
                             "intrinsics_head": IntrinsicsHead(256)}, opt.seed)
         for name, module in mods.items():
             load_component(opt, name, module)

@@ -34,7 +34,8 @@ from endodav_tpu_torch.kernels.tf32x3 import PlaneCache, check_layout, kmajor_pl
 __all__ = ["mlp_reference", "fused_mlp", "mlp_config"]
 
 MID_C2 = 384  # csrc/fused_mlp.cu:Mid, a cluster of 2 CTAs a 128-row tile
-WIDE_NC = 256  # csrc/fused_mlp.cu:Wide, output columns a CTA of a cluster
+WIDE_NC = 256  # csrc/fused_mlp.cu:Wide and Tall, output columns a CTA of a cluster
+WIDE_CL, MAX_CL = 4, 8  # Wide's 128-row tiles up to 4 CTAs, Tall's 64 rows up to 8
 C_STEP = 64  # C is walked in steps of 64 (bf16, and f32 at wide widths)
 
 
@@ -50,17 +51,18 @@ def mlp_reference(x, w1, b1, w2, b2):
 def mlp_config(c: int, hdim: int, c2: int) -> tuple[int, int]:
     """(cluster size, rows a tile) of csrc/fused_mlp.cu for widths C -> H ->
     C2: C2 = 384 on a cluster of 2 CTAs (H a multiple of 128); any other
-    C2 up to 1024 that is a multiple of 8 on a cluster of cl = ceil(C2/256)
-    CTAs (H a multiple of 32*cl); 128 rows a tile; C a multiple of 64.
-    Raises for widths the kernel does not take."""
+    C2 up to 2048 that is a multiple of 8 on a cluster of cl = ceil(C2/256)
+    CTAs (H a multiple of 32*cl), 128 rows a tile up to cl = 4 and 64 rows
+    above (vitg's 1536 -> 6144 -> 1536: a cluster of 6); C a multiple of
+    64.  Raises for widths the kernel does not take."""
     if c2 == MID_C2:
         cl, rows, hstep = 2, 128, 128
     else:
-        cl, rows = -(-c2 // WIDE_NC), 128
-        hstep = 32 * cl
-        if c2 % 8 or not 1 <= cl <= 4:
+        cl = -(-c2 // WIDE_NC)
+        rows, hstep = (128 if cl <= WIDE_CL else 64), 32 * cl
+        if c2 % 8 or not 1 <= cl <= MAX_CL:
             raise ValueError(f"fused_mlp: output width {c2} must be a multiple of 8 and at "
-                             f"most {4 * WIDE_NC}")
+                             f"most {MAX_CL * WIDE_NC}")
     if c % C_STEP or c == 0 or hdim % hstep or hdim == 0:
         raise ValueError(f"fused_mlp: widths {c} -> {hdim} -> {c2} need C a multiple of "
                          f"{C_STEP} and H a multiple of {hstep}")

@@ -1,10 +1,13 @@
 """ResNet feature-pyramid encoder of the pose, position and transform nets.
 
-Port of `endodav_tpu/models/resnet.py` (ResNet-18/34, `num_input_images`
-frames stacked on the channel axis): channels-last input [B, H, W, 3n] ->
-[relu(bn1(conv1)), layer1, layer2, layer3, layer4].  Parameter names are
-the reference's torchvision keys under ``encoder.`` (``encoder.layer1.0.
-conv1.weight``, ``encoder.layer2.0.downsample.0.weight`` ...).
+Port of `endodav_tpu/models/resnet.py` (ResNet-18/34 of basic blocks,
+ResNet-50/101/152 of bottleneck blocks, `num_input_images` frames stacked
+on the channel axis): channels-last input [B, H, W, 3n] ->
+[relu(bn1(conv1)), layer1, layer2, layer3, layer4], with
+`resnet_num_ch_enc` channels.  Parameter names are the reference's
+torchvision keys under ``encoder.`` (``encoder.layer1.0.conv1.weight``,
+``encoder.layer1.0.conv3.weight``, ``encoder.layer2.0.downsample.0.weight``
+...).
 
 BatchNorm is flax's (`resnet.py:42,66,98`: momentum 0.9, eps 1e-5), not
 `nn.BatchNorm2d`'s: in train mode the batch mean and the *biased* batch
@@ -35,15 +38,21 @@ from endodav_tpu_torch.models.cast import conv_nhwc
 __all__ = ["BatchNorm", "ResNetEncoder", "resnet_num_ch_enc", "commit_batch_stats",
            "discard_batch_stats"]
 
-_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
+           152: (3, 8, 36, 3)}
+_BOTTLENECK = {50, 101, 152}
 MOMENTUM = 0.9
 EPS = 1e-5
 
 
 def resnet_num_ch_enc(num_layers: int) -> tuple[int, ...]:
+    """The five maps' channels; a bottleneck's output is 4x its width."""
     if num_layers not in _LAYERS:
-        raise ValueError(f"ResNet-{num_layers} is not ported (ported: {sorted(_LAYERS)})")
-    return (64, 64, 128, 256, 512)
+        raise ValueError(f"ResNet-{num_layers} does not exist (choices: {sorted(_LAYERS)})")
+    base = (64, 64, 128, 256, 512)
+    if num_layers in _BOTTLENECK:
+        return (64,) + tuple(4 * c for c in base[1:])
+    return base
 
 
 class BatchNorm(nn.Module):
@@ -94,6 +103,8 @@ def discard_batch_stats(module: nn.Module) -> None:
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, cin: int, features: int, stride: int, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
@@ -116,18 +127,51 @@ class BasicBlock(nn.Module):
         return F.relu(y + x)
 
 
+class Bottleneck(nn.Module):
+    """JAX's `_Bottleneck` (:59-80): 1x1 to ``features``, 3x3 with the
+    stride, 1x1 to ``4 * features``; a projection where the width or the
+    stride changes."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, features: int, stride: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        out_ch = features * self.expansion
+        self.conv1 = nn.Conv2d(cin, features, 1, bias=False)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = nn.Conv2d(features, features, 3, stride, padding=1, bias=False)
+        self.bn2 = BatchNorm(features)
+        self.conv3 = nn.Conv2d(features, out_ch, 1, bias=False)
+        self.bn3 = BatchNorm(out_ch)
+        if cin != out_ch or stride != 1:
+            self.downsample = nn.ModuleList([nn.Conv2d(cin, out_ch, 1, stride, bias=False),
+                                             BatchNorm(out_ch)])
+
+    def forward(self, x, train: bool):
+        dt = self.dtype
+        y = F.relu(self.bn1(conv_nhwc(self.conv1, x, dt), train))
+        y = F.relu(self.bn2(conv_nhwc(self.conv2, y, dt), train))
+        y = self.bn3(conv_nhwc(self.conv3, y, dt), train)
+        if hasattr(self, "downsample"):
+            conv, bn = self.downsample
+            x = bn(conv_nhwc(conv, x, dt), train)
+        return F.relu(y + x)
+
+
 class _Trunk(nn.Module):
     def __init__(self, num_layers: int, in_ch: int, dtype: torch.dtype):
         super().__init__()
         self.conv1 = nn.Conv2d(in_ch, 64, 7, 2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
+        block = Bottleneck if num_layers in _BOTTLENECK else BasicBlock
         cin = 64
         for stage, (width, nblocks) in enumerate(zip((64, 128, 256, 512), _LAYERS[num_layers]),
                                                  start=1):
             blocks = []
             for b in range(nblocks):
-                blocks.append(BasicBlock(cin, width, 2 if (stage > 1 and b == 0) else 1, dtype))
-                cin = width
+                blocks.append(block(cin, width, 2 if (stage > 1 and b == 0) else 1, dtype))
+                cin = width * block.expansion
             setattr(self, f"layer{stage}", nn.ModuleList(blocks))
 
 

@@ -47,6 +47,7 @@ VIT_CONFIGS = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6),
     "vitb": dict(embed_dim=768, depth=12, num_heads=12),  # EndoDAC only
     "vitl": dict(embed_dim=1024, depth=24, num_heads=16),
+    "vitg": dict(embed_dim=1536, depth=40, num_heads=24),  # no option selects it, as in JAX
 }
 
 

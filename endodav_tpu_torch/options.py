@@ -68,7 +68,7 @@ class EndoDAVOptions:
                        help="seed of the random weights used when no weights are loaded")
 
         # TRAINING
-        p.add_argument("--num_layers", type=int, default=18, choices=[18, 34])
+        p.add_argument("--num_layers", type=int, default=18, choices=[18, 34, 50, 101, 152])
         p.add_argument("--frame_max_interval", type=int, default=1)
         p.add_argument("--height", type=int, default=256)
         p.add_argument("--width", type=int, default=320)

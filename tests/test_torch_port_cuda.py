@@ -967,6 +967,34 @@ def test_fused_mlp_on_a_cluster_of_three(dtype, rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 63, 65, 4 * 1703])
+@pytest.mark.parametrize("c", [1536, 2048])
+def test_fused_mlp_on_clusters_of_six_and_eight(dtype, rows, c):
+    """vitg's MLP (1536 -> 6144 -> 1536 on a cluster of 6) and the widest
+    the kernel takes (2048 -> 8192 -> 2048, a cluster of 8), both on 64-row
+    tiles, at row counts around a tile and at four 518x644 frames, against
+    the plain version at TOL of max(1, the largest entry)."""
+    from endodav_tpu_torch.kernels.fused_mlp import fused_mlp, mlp_config, mlp_reference
+
+    dev = _card()
+    h = 4 * c
+    assert mlp_config(c, h, c) == (c // 256, 64)
+    rng = np.random.default_rng(rows + c)
+    f = lambda *s, sd=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sd).astype(np.float32)).to(dev)
+    x = f(rows, c).to(dtype)
+    fc1, fc2 = f(h, c, sd=c ** -0.5).to(dtype), f(c, h, sd=h ** -0.5).to(dtype)
+    b1, b2 = f(h, sd=0.1), f(c, sd=0.1)
+    want = mlp_reference(x, fc1.t(), b1, fc2.t(), b2).float()
+    before = fused_mlp.launches
+    got = fused_mlp(x, fc1.t(), b1, fc2.t(), b2)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1 and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= TOL[dtype] * max(1.0, want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads", [6, 12])
 def test_flash_attention_at_endodac_batches(dtype, heads):
     """An EndoDAC batch of 8 224x280 frames (N=321) at vits (6 heads) and

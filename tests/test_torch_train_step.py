@@ -102,6 +102,8 @@ def _with_motion(variables, seed=21):
     v = jax.tree_util.tree_map(lambda a: a, variables)
     pos = dict(v["position"]["params"])
     for s in SCALES:
+        if f"position_conv_{s}" not in pos:  # a model trained at fewer scales
+            continue
         conv = dict(pos[f"position_conv_{s}"])
         conv["bias"] = jnp.asarray(rng.normal(0, 0.7, conv["bias"].shape).astype(np.float32))
         pos[f"position_conv_{s}"] = conv
@@ -113,12 +115,13 @@ def _with_motion(variables, seed=21):
     return v
 
 
-def _port_trainer(variables, lora_type="dvlora"):
+def _port_trainer(variables, lora_type="dvlora", num_layers=18):
     """The port's Trainer on the CPU with the JAX variables loaded."""
     from endodav_tpu_torch.options import EndoDAVOptions
     from endodav_tpu_torch.train.trainer import Trainer
 
-    t = Trainer(EndoDAVOptions().parse([*FLAGS, "--lora_type", lora_type]))
+    t = Trainer(EndoDAVOptions().parse([*FLAGS, "--lora_type", lora_type, "--num_layers",
+                                        str(num_layers)]))
     for comp, kind in COMPONENT_KIND.items():
         v = jax.tree_util.tree_map(np.asarray, variables[comp])
         t.mods[comp].load_state_dict(
