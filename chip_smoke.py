@@ -58,7 +58,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shipped eval's ssb model in bf16) the same way;
   5. the serving path as the CLI runs it (engine.build_depth_model ->
      depth_window_forward -> evaluate_video_sequences) over synthetic
-     SCARED-like 64-frame sequences: vitl 518x644 merged (dedup in taps
+     SCARED-like 512x640 sequences cut to their first 33 frames (two
+     windows; the single-frame legs 23; for the time limit): vitl 518x644
+     merged (dedup in taps
      mode, int8 GEMMs, device stitch), the vits 518x644 headline (dedup in
      prefix mode) as built, with ENDODAV_FUSED_MLP=1 and with
      ENDODAV_FUSED_RCU=1, and the 224x280 CLI default (window path), and
@@ -153,10 +155,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      where matplotlib imports, its trajectory points checked in any case;
      ``--mode reconstruction`` on the Hamlyn run's depth files), each
      phase's seconds and ms/frame or ms/pair;
+  8c. `parallel/` on the one card: the CLIs' mesh flags on NCCL with a
+     world of one (`run_parallel_clis`: `evaluate_depth_video` at the
+     518x644 headline with ``--serve_mesh model=1`` and ``data=1`` against
+     the run without the flag, ``model=2`` refused with JAX's error,
+     `scripts/train_dp.sh` as written failing with JAX's ValueError and
+     its ``MESH=data=2`` clamped, then with ``--T 16 --batch_size 2
+     --num_epochs 1`` with and without ``--mesh_shape data=1``), and two
+     ranks sharing the card over gloo (`run_shared_card`): the
+     tensor-parallel forward at g=2 (vits EndoDAV on a 32-frame window and
+     EndoDAC on a batch of 8, vitl EndoDAV, 518x644, f32 and bf16, and once
+     with ENDODAV_FUSED_MLP=1: flash attention at H/2 heads, the fused MLP
+     at 4C/2 hidden units), `TPDedupWindowForward` and the window path at
+     data=2 through `infer_video_depth` on a 45-frame sequence, and two
+     steps of `scripts/train_video.sh`'s flags at ``--batch_size 2`` at
+     data=2 against data=1, each against one process on the card; the
+     shared-card times, marked as such (two ranks on one card are not a
+     speed of TP or DP);
   9. a JSON line per kernel (rows 1-6 with their bf16 launches and bf16
      error against the plain version; rows 1 and 4 also their launches in
-     bf16 training and their rows at the training shapes) and, last, the
-     device line.
+     bf16 training and their rows at the training shapes; every row its
+     ``shared_card`` launches, rows 1 and 5 by local head count and hidden
+     width) and, last, the device line.
 
 ``--profile-step TRACE_DIR`` adds a `torch.profiler` run of one more
 full-width step, ``--profile-serving TRACE_DIR`` one each of vitl, the
@@ -209,7 +229,8 @@ BF16_REL_MAX, BF16_REL_MEAN = 2.0, 1.5
 # EndoDAC batch); the vitg trunk's VITG_FRAMES 518x644 frames (H=24)
 VITG_FRAMES = 4
 FLASH_SHAPES = [(64, 321, 6), (64, 1703, 6), (32, 1703, 16), (8, 321, 6), (8, 321, 12),
-                (16, 321, 6), (VITG_FRAMES, 1703, 24)]
+                (16, 321, 6), (VITG_FRAMES, 1703, 24), (32, 1703, 3), (8, 1703, 3),
+                (8, 1703, 8)]
 # the gradient of the kernel path at the training batches: (B, N, H)
 FLASH_GRAD_SHAPES = [(16, 321, 6), (8, 321, 12)]
 # temporal block (C, rows) of one 518x644 window: vits's four motion
@@ -224,9 +245,11 @@ TEMPORAL_TRAIN_SHAPES = [(192, 320), (384, 80), (64, 320), (64, 1280)]
 # EndoDAC batch of 8 224x280 frames at vits and at vitb (768 columns: the
 # widest tile on a cluster of 3); the vitg trunk's frames (1536 columns: 64-row
 # tiles on a cluster of 6), and 2048 columns on the largest cluster, 8 (no
-# model has that width: the kernel's widest)
+# model has that width: the kernel's widest); vits' 4C/2 = 768 local hidden
+# units of the tensor-parallel trunk on a 518x644 window
 MLP_SHAPES = [(384, 1536, 32 * 1703), (1024, 4096, 32 * 1703), (384, 1536, 8 * 321),
-              (768, 3072, 8 * 321), (1536, 6144, VITG_FRAMES * 1703), (2048, 8192, 4096)]
+              (768, 3072, 8 * 321), (1536, 6144, VITG_FRAMES * 1703), (2048, 8192, 4096),
+              (384, 768, 32 * 1703)]
 # fused RCU (B, H, W, C): the vits head's RCU inputs of one 518x644 window
 # (refinenet4 19x23, refinenet3 37x46, refinenet2 74x92, refinenet1
 # 148x184) and of a 224x280 window (refinenet1 64x80); EndoDAC's of a batch
@@ -1433,6 +1456,21 @@ def half_size(sequences):
     return out
 
 
+# the main path's and the shipped eval's legs read the first 33 frames of the
+# 64-frame sequence (two windows: one chunk at --chunk_windows 2, two at
+# vitl's 1; the ragged last chunk runs in streaming and on the shared card),
+# half the host metrics; the single-frame legs the first 23 (three batches
+# of SINGLE_FRAME_BATCH, the last ragged)
+MAIN_PATH_FRAMES = 33
+SINGLE_FRAME_FRAMES = 23
+
+
+def first_frames(sequences, n):
+    """Each sequence cut to its first ``n`` frames."""
+    per_frame = ("colors", "depths", "poses", "Ks")
+    return [{k: (v[:n] if k in per_frame else v) for k, v in seq.items()} for seq in sequences]
+
+
 def synthetic_sequences(n_seq=2, n_frames=64, h=512, w=640):
     """SCARED-like sequences made with numpy from the seed: smooth uint8
     frames, depths in (1, 150), small camera motion, SCARED intrinsics."""
@@ -2311,11 +2349,15 @@ def run_ssb_training(device, root, steps=SSB_STEPS):
 
 
 # the training script's tree: two sequences with ground truth (the val and
-# test splits) and two without, 40 frames of 512x640 each; the training
+# test splits) and two without, 40 frames each (SCRIPT_HW); the training
 # split of all four gives 7 clips of T=16
 SCRIPT_SEQUENCES = (("train/dataset1/keyframe1", False), ("train/dataset2/keyframe1", False),
                     ("train/dataset5/keyframe1", True), ("train/dataset3/keyframe3", True))
 SCRIPT_FRAMES = 40
+# the scripts' trees at the training size: their eval CLIs' host metrics
+# (TAE/TAS per frame pair) took most of each CLI's time at 512x640, and the
+# script's time limit binds
+SCRIPT_HW = (256, 320)
 # what one `Trainer.val` launches: the registration warp and the occlusion
 # splat of the flow nets' forward, no backward
 VAL_LAUNCHES = {"grid_sample_fwd": 1, "splat": 1}
@@ -2466,7 +2508,7 @@ def run_training_script(device, root):
     from endodav_tpu_torch.options import EndoDAVOptions
 
     t0 = time.perf_counter()
-    data, splits = write_script_tree(root)
+    data, splits = write_script_tree(root, h=SCRIPT_HW[0], w=SCRIPT_HW[1])
     print(f"[training script] synthetic SCARED tree with ground truth written in "
           f"{time.perf_counter() - t0:.1f} s")
     log_dir = os.path.join(root, "log")
@@ -2601,7 +2643,7 @@ def run_dac1_script(device, root):
     from endodav_tpu_torch.options import EndoDAVOptions
 
     t0 = time.perf_counter()
-    data, splits = write_script_tree(root, n_frames=DAC1_FRAMES)
+    data, splits = write_script_tree(root, n_frames=DAC1_FRAMES, h=SCRIPT_HW[0], w=SCRIPT_HW[1])
     with_gt = [n for n, gt in SCRIPT_SEQUENCES if gt]
     write_endovis_split(splits, [n for n, _ in SCRIPT_SEQUENCES], with_gt)
     print(f"[train_video_dac1.sh] synthetic tree written in {time.perf_counter() - t0:.1f} s")
@@ -3000,7 +3042,8 @@ def run_cli(label, run, opt, n_frames):
 
     counters = _serving_counters()
     made, real = [], engine.depth_window_forward
-    engine.depth_window_forward = lambda model: made.append(real(model)) or made[-1]
+    engine.depth_window_forward = (
+        lambda model, opt=None: made.append(real(model, opt)) or made[-1])
     for fn in counters.values():
         fn.launches = 0
     try:
@@ -3740,7 +3783,7 @@ def run_export_gt_depth(data, root):
     after = sorted(os.listdir(repo_split)) if os.path.isdir(repo_split) else None
     print(f"[export_gt_depth.sh] export_gt {' '.join(EXPORT_DEPTH_FLAGS)}: {gt.shape} "
           f"{gt.dtype} in {seconds:.1f} s")
-    require(gt.shape == (len(lines), 512, 640) and np.isfinite(gt).all() and before == after,
+    require(gt.shape == (len(lines), *SCRIPT_HW) and np.isfinite(gt).all() and before == after,
             f"export_gt_depth.sh: depths {gt.shape}, the repository's split {before} -> {after}")
     return {"export_s": seconds}
 
@@ -3783,6 +3826,447 @@ def run_pose_eval_r50(device, data, splits, weights):
 
 
 # kernel-name fragments -> the categories of the profiles' breakdowns
+# ------------------------------------------------------------- parallel/
+# The port's `parallel/` on the one card: the CLIs' mesh flags on NCCL with
+# a world of one, and two ranks sharing the card over gloo through
+# `parallel`'s API (`devices=[cuda:0, cuda:0]`), each leg held against one
+# process on the card.  The shared-card times are two ranks on one card,
+# not a speed of tensor or data parallelism.
+# 4 sequences of 33 256x320 frames: 6 training clips of T=16 (three batches
+# of 2) and 2 val clips (`Trainer.val` takes a batch of 2)
+PAR_TREE_FRAMES = 33
+SHARED_CARD = ("cuda:0", "cuda:0")
+# TP dedup and the window path at data=2 read the first 45 frames of the
+# 512x640 sequence: three windows, a ragged last chunk at --chunk_windows 2
+SHARED_FRAMES = 45
+SHARED_TIMEOUT_S = 420
+# the TP legs: (label, model flags, input frames, bf16 too, env); vits
+# EndoDAV takes one 32-frame window, vitl 8 frames (cut: its all-reduces of
+# [frames, 1703, 1024] go through host memory under gloo), EndoDAC a batch
+# of 8 frames
+TP_LEGS = (("vits EndoDAV", HEADLINE, 32, True, {}),
+           ("vits EndoDAV ENDODAV_FUSED_MLP=1", HEADLINE, 32, False,
+            {"ENDODAV_FUSED_MLP": "1"}),
+           ("vits EndoDAC", ["--model_type", "endodac", "--merge_lora",
+                             "--depth_image_shape", "518", "644"], 8, True, {}),
+           ("vitl EndoDAV", ["--encoder", "vitl", *HEADLINE], 8, True, {}))
+# scripts/train_video.sh's flags at --batch_size 2 (train_one_batch twice)
+DP_TRAIN_FLAGS = [*SCRIPT_TRAIN_FLAGS[:4], "--batch_size", "2", *SCRIPT_TRAIN_FLAGS[6:],
+                  "--seed", str(SEED), "--num_workers", "2"]
+DP_STEPS = 2
+# the data=2 steps against data=1: losses relative 1e-4 (JAX's bound,
+# tests/test_train_step.py:319-331); the BatchNorm running statistics of
+# step 1 within 1e-5 of max(1, |statistic|), step 2's (which follow weights
+# that already differ; 7.1e-5-1.27e-4 in four runs) within DP_STAT2_ATOL;
+# the weights of each component: the sum of |w(data=2) - w(data=1)| over
+# its leaves within DP_WEIGHT_REL of the sum of |w(data=1) - w(init)|
+# (Adam's first steps move an entry by about lr whatever its gradient's
+# size, so an entry whose gradient's sign the rounding decides moves 2 lr
+# the other way: a few in a thousand; a component whose gradient is wrong
+# flips a large share of its entries, and lands at 0.15 or more)
+DP_LOSS_RTOL, DP_STAT_ATOL, DP_STAT2_ATOL, DP_WEIGHT_REL = 1e-4, 1e-5, 3e-4, 0.1
+# a world of one against no flag: the weights' mean |Δ|
+DP_WEIGHT_MEAN = 1e-6
+# scripts/train_dp.sh's command (MESH empty: every visible card)
+TRAIN_DP_SH = ["--use_dp"]
+
+
+def _tp_input(frames, endodav: bool) -> torch.Tensor:
+    rng = np.random.default_rng(SEED + 7)
+    shape = (1, frames, 256, 320, 3) if endodav else (frames, 256, 320, 3)
+    return torch.from_numpy(rng.uniform(0.0, 1.0, shape).astype(np.float32))
+
+
+def _recorders():
+    """Wrap the flash-attention and fused-MLP wrappers where the ViT calls
+    them, so that each call's head count and hidden width are counted (the
+    wrappers' own launch counters are untouched)."""
+    import collections
+
+    from endodav_tpu_torch.models import vit
+    from endodav_tpu_torch.ops import attention
+
+    seen = {"heads": collections.Counter(), "hidden": collections.Counter()}
+    qkv, mlp = attention.qkv_attention, vit.fused_mlp
+
+    def qkv_rec(x, heads, *a, **k):
+        seen["heads"][str(heads)] += 1
+        return qkv(x, heads, *a, **k)
+
+    def mlp_rec(x, w1, *a, **k):
+        seen["hidden"][str(w1.shape[1])] += 1
+        return mlp(x, w1, *a, **k)
+
+    attention.qkv_attention, vit.fused_mlp = qkv_rec, mlp_rec
+    return seen
+
+
+def _timed(fn, device):
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _dp_trainer(device, data, splits, *extra):
+    from endodav_tpu_torch.options import EndoDAVOptions
+    from endodav_tpu_torch.train.trainer import Trainer
+
+    opt = EndoDAVOptions().parse([*DP_TRAIN_FLAGS, "--data_path", data, *extra])
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        return own_policy("Trainer", Trainer, opt, device)
+
+
+def shared_card_rank(path):
+    """One of the two ranks of `run_shared_card` (gloo, both on cuda:0):
+    the TP forwards of `TP_LEGS` at g=2 (f32, and bf16 where marked), the
+    TP dedup pipeline and the data=2 window path through `infer_video_depth`
+    on SHARED_FRAMES frames, then `DP_STEPS` training steps at data=2 on
+    this rank's half of each batch, each compared here with the data=1
+    step's losses, weights and statistics and with rank 0's weights.
+    Rank 0 saves the outputs; each rank its launches, by head count and
+    hidden width for flash attention and the fused MLP."""
+    import torch.distributed as dist
+
+    from endodav_tpu_torch import parallel
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.eval.video_inference import infer_video_depth
+    from endodav_tpu_torch.models.vit import VIT_CONFIGS
+    from endodav_tpu_torch.parallel.tp import (build_tp_mesh, TPDedupWindowForward,
+                                               tp_local_model, tp_window_forward)
+
+    spec = torch.load(path, weights_only=False)
+    device = torch.device("cuda", 0)
+    rank = dist.get_rank()
+    seen = _recorders()
+    counters = {**_serving_counters(), **_kernel_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    out = {"tp": {}, "ms": {}, "launches": {}, "wide": 0}
+
+    def record(label):
+        out["launches"][label] = {k: fn.launches for k, fn in counters.items()}
+        out["launches"][label].update(heads=dict(seen["heads"]), hidden=dict(seen["hidden"]))
+        for fn in counters.values():
+            fn.launches = 0
+        seen["heads"].clear()
+        seen["hidden"].clear()
+
+    mesh = build_tp_mesh(2)
+    models = {}
+    for label, args, frames, with_bf16, env in TP_LEGS:
+        model = _built(models, args, device)
+        heads = VIT_CONFIGS[getattr(model, "encoder", None) or model.backbone_size]["num_heads"]
+        x = _tp_input(frames, model.model_type == "endodav").to(device)
+        for dtype in (torch.float32, torch.bfloat16)[:2 if with_bf16 else 1]:
+            m = model.clone(dtype=dtype) if dtype == torch.bfloat16 else model
+            fwd = tp_window_forward(tp_local_model(m, 2), m.state_dict(), mesh, heads)
+            with _env(env):  # one cold forward
+                y, ms = _timed(lambda: fwd(x), device)
+            if model.model_type == "endodav":  # its C >= 512 blocks (row 3)
+                out["wide"] += wide_temporal_blocks(model)
+            name = f"{label} {str(dtype)[6:]}"
+            out["ms"][name] = ms / frames
+            if rank == 0:
+                out["tp"][name] = y.float().cpu()
+            record(name)
+            del fwd, m
+        torch.cuda.empty_cache()
+
+    frames = synthetic_sequences(n_seq=1)[0]["colors"][:SHARED_FRAMES]
+    model = _built(models, HEADLINE, device)
+    dedup = TPDedupWindowForward(tp_local_model(model, 2), model.state_dict(), mesh, 6)
+    disp, ms = _timed(lambda: infer_video_depth(None, frames, image_shape=(518, 644),
+                                                chunk_windows=2, device=device, dedup=dedup),
+                      device)
+    out["ms"]["TP dedup"], out["tp"]["TP dedup"] = ms / len(frames), disp.astype(np.float32)
+    record("TP dedup")
+    del dedup
+    fwd = engine.depth_window_forward(model)
+    disp, ms = _timed(lambda: infer_video_depth(fwd, frames, image_shape=(518, 644),
+                                                chunk_windows=2, device=device,
+                                                mesh=parallel.build_mesh("data=2")), device)
+    out["ms"]["window data=2"] = ms / len(frames)
+    out["tp"]["window data=2"] = disp.astype(np.float32)
+    record("window data=2")
+    del model, models, fwd
+    torch.cuda.empty_cache()
+
+    trainer = _dp_trainer(device, spec["data"], spec["splits"], "--mesh_shape", "data=2")
+    ref = torch.load(spec["dp_ref"], weights_only=False)
+    losses, step_ms, stat_errs = [], [], []
+    for step, batch in enumerate(first_batches(trainer, DP_STEPS), 1):
+        scalars, ms = _timed(lambda: trainer.train_one_batch(batch), device)
+        losses.append({k: float(v) for k, v in scalars.items()})
+        step_ms.append(ms)
+        launches = {k: counters[k].launches for k in STEP_LAUNCHES}
+        require(launches == STEP_LAUNCHES, f"data=2 rank {rank} step {step}: launches "
+                f"{launches}, expected {STEP_LAUNCHES}")
+        record(f"data=2 step {step}")
+        stat_errs.append(_stat_err(trainer, ref["stats"][step - 1], device))
+    out["ms"]["data=2 step"] = step_ms
+    loss_rel = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+                   for a, b in zip(losses, ref["losses"]) for k in b)
+    comp_rel, worst_leaf = {}, (0.0, None)
+    for c, m in trainer.mods.items():
+        diff = moved = 0.0
+        for k, v in m.state_dict().items():
+            key = f"{c}.{k}"
+            if "running" in k or not v.is_floating_point():
+                continue
+            one = ref["state"][key].to(device).float()
+            d = (v.float() - one).abs().sum().item()
+            u = (one - ref["init"][key].to(device).float()).abs().sum().item()
+            diff, moved = diff + d, moved + u
+            if u > 0 and d / u > worst_leaf[0]:
+                worst_leaf = (d / u, key)
+        comp_rel[c] = diff / moved if moved else (0.0 if diff == 0 else float("inf"))
+    state = {f"{c}.{k}": v for c, m in trainer.mods.items() for k, v in m.state_dict().items()}
+    unlike = 0
+    for v in state.values():
+        mine = v.clone()
+        dist.broadcast(v, src=0)
+        unlike += int(not torch.equal(mine, v))
+    flags = torch.tensor([unlike], device=device)
+    dist.all_reduce(flags)
+    out["dp"] = {"loss_rel": loss_rel, "stat_err": stat_errs, "weight_rel": comp_rel,
+                 "worst_leaf": worst_leaf,
+                 "ranks_unlike": int(flags.item()),
+                 "loss": [(d["loss"], d["loss_0"]) for d in losses]}
+    torch.save(out, f"{path}.rank{rank}")
+
+
+def _running_stats(trainer) -> dict:
+    return {f"{c}.{k}": v.detach().cpu().clone() for c, m in trainer.mods.items()
+            for k, v in m.state_dict().items() if "running" in k}
+
+
+def _stat_err(trainer, ref, device) -> float:
+    """The largest difference of the BatchNorm running statistics from
+    ``ref``'s, relative to max(1, |ref|)."""
+    return max(((v.to(device) - ref[k].to(device)).abs()
+                / ref[k].to(device).abs().clamp_min(1.0)).max().item()
+               for k, v in _running_stats(trainer).items())
+
+
+def _built(models: dict, args, device):
+    """The engine's model of ``args`` (seed weights), built once a process."""
+    from endodav_tpu_torch.eval import engine
+
+    key = tuple(args)
+    if key not in models:
+        models[key] = own_policy(" ".join(args), engine.build_depth_model, eval_options(args),
+                                 device)
+    return models[key]
+
+
+def _tp_reference(device):
+    """The single-process forwards of `TP_LEGS` on the card (f32 and bf16),
+    the TP dedup leg's single-device dedup pipeline and the window path."""
+    from endodav_tpu_torch.eval import engine
+    from endodav_tpu_torch.eval.video_inference import DedupWindowForward, infer_video_depth
+
+    ref, models = {}, {}
+    for label, args, frames, with_bf16, env in TP_LEGS:
+        model = _built(models, args, device)
+        x = _tp_input(frames, model.model_type == "endodav").to(device)
+        for dtype in (torch.float32, torch.bfloat16)[:2 if with_bf16 else 1]:
+            m = model.clone(dtype=dtype) if dtype == torch.bfloat16 else model
+            with torch.inference_mode(), _env(env):
+                ref[f"{label} {str(dtype)[6:]}"] = m(x)[("disp", 0)].float().cpu()
+            del m
+        torch.cuda.empty_cache()
+    frames = synthetic_sequences(n_seq=1)[0]["colors"][:SHARED_FRAMES]
+    model = _built(models, HEADLINE, device)
+    ref["TP dedup"] = infer_video_depth(None, frames, image_shape=(518, 644), chunk_windows=2,
+                                        device=device, dedup=DedupWindowForward(model))
+    ref["window data=2"] = infer_video_depth(engine.depth_window_forward(model), frames,
+                                             image_shape=(518, 644), chunk_windows=2,
+                                             device=device)
+    del model, models
+    torch.cuda.empty_cache()
+    return ref
+
+
+def run_shared_card(device, data, splits, root, card):
+    """Two ranks sharing the card over gloo (`parallel.launch` with
+    ``devices=[cuda:0, cuda:0]``), each leg held against one process on the
+    card: the TP forward at g=2 (`TP_LEGS`: f32 within MODEL_TOL; bf16
+    against the f32 forward within BF16_REL_MAX / BF16_REL_MEAN of the
+    single-process bf16 forward's own error), `TPDedupWindowForward` and
+    the window path at data=2 through `infer_video_depth` at 518x644 on
+    SHARED_FRAMES frames of a 512x640 sequence (MODEL_TOL), and `DP_STEPS`
+    training steps at data=2 against data=1 (losses, each step's BatchNorm
+    statistics and each component's weights as DP_LOSS_RTOL, DP_STAT_ATOL,
+    DP_STAT2_ATOL and DP_WEIGHT_REL say; the ranks' weights bit for bit
+    alike).  Flash attention must run at H/g heads and the fused MLP at
+    4C/g hidden units.  Returns the ranks' launches, by head count and
+    hidden width, and the times (two ranks on one card)."""
+    from endodav_tpu_torch import parallel
+
+    ref = _tp_reference(device)
+    trainer = _dp_trainer(device, data, splits)
+    init = {f"{c}.{k}": v.detach().cpu().clone() for c, m in trainer.mods.items()
+            for k, v in m.state_dict().items()}
+    losses, stats = [], []
+    for batch in first_batches(trainer, DP_STEPS):
+        losses.append({k: float(v) for k, v in trainer.train_one_batch(batch).items()})
+        stats.append(_running_stats(trainer))
+    dp_ref = os.path.join(root, "dp_ref.pt")
+    torch.save({"losses": losses, "stats": stats, "init": init,
+                "state": {f"{c}.{k}": v.cpu() for c, m in trainer.mods.items()
+                          for k, v in m.state_dict().items()}}, dp_ref)
+    del trainer
+    torch.cuda.empty_cache()
+    path = os.path.join(root, "shared.pt")
+    torch.save({"data": data, "splits": splits, "dp_ref": dp_ref}, path)
+    t0 = time.perf_counter()
+    parallel.launch(shared_card_rank, (path,), n=2, devices=SHARED_CARD,
+                    timeout=SHARED_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{path}.rank{r}", weights_only=False) for r in range(2)]
+    got = ranks[0]
+    errs = {}
+    for label, args, frames, with_bf16, env in TP_LEGS:
+        f32 = f"{label} float32"
+        errs[f32] = _disp_err(got["tp"][f32], ref[f32])
+        require(errs[f32][0] <= MODEL_TOL, f"[shared card] TP {f32}: max |Δdisp| "
+                f"{errs[f32][0]} against one process, above {MODEL_TOL}")
+        if with_bf16:
+            b16 = f"{label} bfloat16"
+            tp, own = _disp_err(got["tp"][b16], ref[f32]), _disp_err(ref[b16], ref[f32])
+            errs[b16] = {"tp_vs_f32": tp, "single_vs_f32": own,
+                         "tp_vs_single": _disp_err(got["tp"][b16], ref[b16])}
+            require(tp[0] <= BF16_REL_MAX * own[0] and tp[1] <= BF16_REL_MEAN * own[1],
+                    f"[shared card] TP {b16}: (max, mean) |Δdisp| against f32 {tp}, above "
+                    f"{BF16_REL_MAX}x / {BF16_REL_MEAN}x one process's bf16 {own}")
+    for label in ("TP dedup", "window data=2"):
+        errs[label] = _disp_err(got["tp"][label], ref[label])
+        require(errs[label][0] <= MODEL_TOL, f"[shared card] {label}: max |Δdisp| "
+                f"{errs[label][0]} against one process, above {MODEL_TOL}")
+    launches, by_heads, by_hidden = {}, {}, {}
+    wide = sum(r["wide"] for r in ranks)
+    for r in ranks:
+        for label, counts in r["launches"].items():
+            for k, v in counts.items():
+                if k == "heads":
+                    for h, n in v.items():
+                        by_heads[h] = by_heads.get(h, 0) + n
+                elif k == "hidden":
+                    for h, n in v.items():
+                        by_hidden[h] = by_hidden.get(h, 0) + n
+                else:
+                    launches[k] = launches.get(k, 0) + v
+    print(f"[shared card] |Δdisp| against one process: {errs}")
+    tp_heads = {lab: got["launches"][f"{lab} float32"]["heads"] for lab, *_ in TP_LEGS}
+    times = {k: ([round(t, 1) for t in v] if isinstance(v, list) else round(v, 3))
+             for k, v in got["ms"].items()}
+    print(f"[shared card] two ranks on one card over gloo (not a speed of TP or DP): ms/frame "
+          f"of the TP legs (one cold forward each), TP dedup and window data=2, ms/step of "
+          f"data=2 {times}; the launch {launch_s:.1f} s ({card})")
+    dp = got["dp"]
+    print(f"[shared card] data=2 training vs data=1: {dp}")
+    # one forward a leg: 12 blocks of vits, 24 of vitl
+    require(tp_heads["vits EndoDAV"] == {"3": 12} and tp_heads["vitl EndoDAV"] == {"8": 24}
+            and tp_heads["vits EndoDAC"] == {"3": 12},
+            f"[shared card] flash attention's heads under TP: {tp_heads}")
+    mlp = got["launches"]["vits EndoDAV ENDODAV_FUSED_MLP=1 float32"]
+    require(mlp["hidden"] == {"768": 12} and mlp["fused_mlp"] == 12,
+            f"[shared card] the fused MLP under TP: {mlp['hidden']}, {mlp['fused_mlp']} launches")
+    require(dp["ranks_unlike"] == 0, "[shared card] the two ranks' weights differ")
+    require(dp["loss_rel"] <= DP_LOSS_RTOL and dp["stat_err"][0] <= DP_STAT_ATOL
+            and dp["stat_err"][-1] <= DP_STAT2_ATOL
+            and max(dp["weight_rel"].values()) <= DP_WEIGHT_REL,
+            f"[shared card] data=2 against data=1: {dp}")
+    return {"launches": launches, "heads": by_heads, "hidden": by_hidden, "ms": got["ms"],
+            "wide": wide, "errs": errs, "dp": dp, "launch_s": launch_s}
+
+
+def _same_metrics(a, b, rtol=1e-4) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+
+
+def run_parallel_clis(device, data, splits, root, card):
+    """The CLIs' mesh flags on the one card (NCCL, a world of one):
+    `evaluate_depth_video` at the 518x644 headline with ``--serve_mesh
+    model=1`` and ``data=1`` against the run without the flag (dedup), the
+    metrics within 1e-4; ``model=2`` refused with JAX's error;
+    `scripts/train_dp.sh` as written (no ``--T``: JAX's ValueError, its
+    ``MESH=data=2`` clamped to one card), then with ``--T 16 --batch_size
+    2 --num_epochs 1`` and again with ``--mesh_shape data=1``: the epoch
+    eval's metrics within 1e-3 and the weights' mean |Δ| within
+    DP_WEIGHT_MEAN.  Returns the seconds of each run."""
+    from endodav_tpu_torch.cli import evaluate_depth_video, train_end_to_end_video
+
+    seconds = {}
+    base = ["--data_path", data, *SCRIPT_EVAL_FLAGS[:2], "--eval_split", "scared_video",
+            *HEADLINE, "--seed", str(SEED)]
+    results = {}
+    with _env({"ENDODAV_TPU_SPLITS_DIR": splits}):
+        for flag in ("", "model=1", "data=1"):
+            args = [*base, *(["--serve_mesh", flag] if flag else [])]
+            t0 = time.perf_counter()
+            with captured_stdout() as out:
+                results[flag] = own_policy(f"evaluate_depth_video {flag}",
+                                           evaluate_depth_video.main, args)
+            seconds[f"eval {flag or 'no flag'}"] = time.perf_counter() - t0
+            if flag:
+                require("[parallel] backend=nccl world=1" in out.getvalue(),
+                        f"evaluate_depth_video --serve_mesh {flag}: no NCCL world of one")
+        for flag in ("model=1", "data=1"):
+            rel = _same_metrics(results[flag]["mean_errors"], results[""]["mean_errors"])
+            require(rel <= 1e-4, f"evaluate_depth_video --serve_mesh {flag}: metrics "
+                    f"{results[flag]['mean_errors']} against {results['']['mean_errors']}")
+        try:
+            evaluate_depth_video.main([*base, "--serve_mesh", "model=2"])
+        except ValueError as e:
+            require("wants 2 devices, only 1 visible" in str(e), f"model=2: {e}")
+        else:
+            raise SmokeFailure("--serve_mesh model=2 ran on one card")
+
+        log = os.path.join(root, "logs_dp")
+        script = ["--data_path", data, "--log_dir", log, *TRAIN_DP_SH]
+        with captured_stdout() as out:
+            try:
+                train_end_to_end_video.main([*script, "--mesh_shape", "data=2"])
+            except ValueError as e:
+                require(str(e).startswith("video-clip train dataset has 0 samples")
+                        and "the default -1 yields no clips" in str(e),
+                        f"train_dp.sh as written: {e}")
+            else:
+                raise SmokeFailure("train_dp.sh without --T trained")
+        require("mesh wants 2 devices, only 1 visible: clamped to data=1" in out.getvalue(),
+                "train_dp.sh MESH=data=2 was not clamped to one card")
+        trainers = {}
+        for flag in ("", "data=1"):
+            args = [*script, "--T", str(TRAIN_T), "--batch_size", "2", "--num_epochs", "1",
+                    "--log_dir", os.path.join(log, flag or "plain"),
+                    *(["--mesh_shape", flag] if flag else [])]
+            t0 = time.perf_counter()
+            with captured_stdout() as out:
+                trainers[flag] = own_policy(f"train_dp.sh {flag}", train_end_to_end_video.main,
+                                            args)
+            seconds[f"train_dp.sh {flag or 'no MESH'}"] = time.perf_counter() - t0
+            if flag:
+                require("[parallel] backend=nccl world=1" in out.getvalue(),
+                        "train_dp.sh --mesh_shape data=1: no NCCL world of one")
+    a, b = trainers["data=1"], trainers[""]
+    metric_rel = _same_metrics(a.eval_results["values"], b.eval_results["values"])
+    diffs = [(p.detach().float() - q.detach().float()).abs()
+             for c in a.mods for p, q in zip(a.mods[c].parameters(), b.mods[c].parameters())]
+    weight_mean = sum(d.sum().item() for d in diffs) / sum(d.numel() for d in diffs)
+    require(metric_rel <= 1e-3 and weight_mean <= DP_WEIGHT_MEAN,
+            f"train_dp.sh --mesh_shape data=1 against no flag: metrics {metric_rel}, weights "
+            f"mean |Δ| {weight_mean}")
+    print(f"[parallel CLIs] evaluate_depth_video --serve_mesh model=1/data=1 metrics as without "
+          f"the flag; train_dp.sh data=1 vs none: metrics within {metric_rel:.2e}, weights mean "
+          f"|Δ| {weight_mean:.2e}; seconds { {k: round(v, 1) for k, v in seconds.items()} } "
+          f"({card})")
+    return {"seconds": seconds, "metric_rel": metric_rel, "weight_mean": weight_mean}
+
+
 PROFILE_CATEGORIES = [
     ("port: grid_sample_fwd", ("grid_sample_fwd_kernel",)),
     ("port: grid_sample_bwd coord-only",
@@ -3893,6 +4377,14 @@ def main() -> int:
     from endodav_tpu_torch.kernels import _build
 
     device = torch.device("cuda", 0)
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the previous lap, kept for the summary."""
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
+
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3909,22 +4401,35 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             print(f"[build] {line.strip()}")
+    lap("build")
+
+    check_s = {}
+
+    def timed(name, fn, *a, **k):
+        """``fn(*a, **k)``, its seconds kept for the summary."""
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        check_s[name] = round(time.perf_counter() - t, 1)
+        return out
 
     with ieee_f32():
-        tile_rows = check_tile_error(device)
-        flash_rows = check_flash(device)
-        flash_grad_err = check_flash_grad(device)
-        temporal_rows = check_temporal(device)
-        mlp_rows = check_fused_mlp(device)
-        rcu_rows = check_fused_rcu(device)
-        temporal_train_rows = check_temporal(device, TEMPORAL_TRAIN_SHAPES, t=16)
-        tattn_rows, tattn_grad_err = check_temporal_attention(device)
-        int8_row = check_int8(device)
-        warp_rows = check_warps(device)
-        warp_bf16_err = check_warps_bf16(device)
-        check_warp_branches(device)
-        cp_rows = check_warps_cp(device)
-        splat_row = check_splat(device)
+        tile_rows = timed("tile", check_tile_error, device)
+        flash_rows = timed("flash", check_flash, device)
+        flash_grad_err = timed("flash grad", check_flash_grad, device)
+        temporal_rows = timed("temporal", check_temporal, device)
+        mlp_rows = timed("mlp", check_fused_mlp, device)
+        rcu_rows = timed("rcu", check_fused_rcu, device)
+        temporal_train_rows = timed("temporal train", check_temporal, device,
+                                    TEMPORAL_TRAIN_SHAPES, t=16)
+        tattn_rows, tattn_grad_err = timed("temporal attention", check_temporal_attention,
+                                           device)
+        int8_row = timed("int8", check_int8, device)
+        warp_rows = timed("warps", check_warps, device)
+        warp_bf16_err = timed("warps bf16", check_warps_bf16, device)
+        timed("warp branches", check_warp_branches, device)
+        cp_rows = timed("warps cp", check_warps_cp, device)
+        splat_row = timed("splat", check_splat, device)
+    lap("kernel checks")
     counters = _serving_counters()
     flash, block = counters["flash_attention"], counters["fused_temporal_block"]
     fused_rcu, fused_mlp = counters["fused_rcu"], counters["fused_mlp"]
@@ -3937,6 +4442,7 @@ def main() -> int:
         check_whole_model(device, pos_embedding_type="rope", expect={temporal_attention: 8}),
         check_whole_model(device, ["--encoder", "vitl", "--merge_lora",
                                    "--disable_residual_block"], (112, 140), 4)))
+    lap("whole models f32")
     # bf16, each with its kernel's launches at bf16: one forward of a clip
     # runs a flash attention a ViT block, two temporal blocks a motion
     # module (APE) or two temporal attentions (RoPE), seven RCUs
@@ -3949,6 +4455,7 @@ def main() -> int:
                           expect={fused_mlp: 12}, **bf16),
         check_whole_model(device, pos_embedding_type="rope",
                           expect={temporal_attention: 8, block: 0}, **bf16)]
+    lap("whole models bf16")
     # the single-frame models: EndoDAC vits and vitb as built, vitb merged
     # with the fused MLP (768 columns, a cluster of 3) and the fused RCU at
     # C=128, vits with BatchNorm RCUs (never fused), AF-SfM
@@ -3967,6 +4474,7 @@ def main() -> int:
         check_whole_model(device, AFSFM, frames=4, expect={flash: 0, fused_rcu: 0}),
         check_whole_model(device, [*AFSFM, "--num_layers", "50"], frames=4,
                           expect={flash: 0, fused_rcu: 0})))
+    lap("single-frame models")
     # the LoRA family: ssb with its motion modules adapted too, Dash
     # in each phase (the engine's seed weights make its index and singular
     # directions nonzero), galora and flora (no CLI flag: rebuilt), EndoDAC
@@ -3989,37 +4497,47 @@ def main() -> int:
         check_whole_model(device, ["--model_type", "endodac", *SSB], frames=4,
                           expect={flash: 12})))
     whole_bf16.append(check_whole_model(device, SHIPPED_EVAL[:4], expect=window, **bf16))
+    lap("LoRA models")
     switch_rows = check_switches(device)
     test_simple_err = check_test_simple(device)
+    lap("switches, test_simple")
     vitg = run_vitg(device)
+    lap("vitg")
 
-    # one 64-frame sequence a leg: the host metrics of a 512x640 sequence
-    # take most of a leg's wall time
+    # one 512x640 sequence a leg, cut to its first MAIN_PATH_FRAMES frames:
+    # the host metrics (TAE/TAS per frame pair) take most of a leg's wall
+    # time, and the script's time limit binds
     sequences = synthetic_sequences(n_seq=1)
-    runs = [run_main_path(VITL_ARGS, sequences, device),
-            run_main_path([*HEADLINE, "--chunk_windows", "2"], sequences, device),
-            run_main_path([*HEADLINE, "--chunk_windows", "2"], sequences, device,
+    short = first_frames(sequences, MAIN_PATH_FRAMES)
+    single = first_frames(sequences, SINGLE_FRAME_FRAMES)
+    runs = [run_main_path(VITL_ARGS, short, device),
+            run_main_path([*HEADLINE, "--chunk_windows", "2"], short, device),
+            run_main_path([*HEADLINE, "--chunk_windows", "2"], short, device,
                           env={"ENDODAV_FUSED_MLP": "1"}),
-            run_main_path([*HEADLINE, "--chunk_windows", "2"], sequences, device,
+            run_main_path([*HEADLINE, "--chunk_windows", "2"], short, device,
                           env={"ENDODAV_FUSED_RCU": "1"}),
-            run_main_path([], sequences, device),
-            # single-frame serving: EndoDAC vitb as built, then merged with the
-            # fused MLP and RCU, vits; AF-SfM on the sequence at 256x320
-            run_main_path(ENDODAC_VITB, sequences, device),
-            run_main_path([*ENDODAC_VITB, "--merge_lora"], sequences, device,
+            run_main_path([], short, device),
+            # single-frame serving on SINGLE_FRAME_FRAMES: EndoDAC vitb as built,
+            # then merged with the fused MLP and RCU, vits; AF-SfM at 256x320
+            run_main_path(ENDODAC_VITB, single, device),
+            run_main_path([*ENDODAC_VITB, "--merge_lora"], single, device,
                           env={"ENDODAV_FUSED_MLP": "1", "ENDODAV_FUSED_RCU": "1"}),
-            run_main_path(ENDODAC, sequences, device),
-            run_main_path(AFSFM, half_size(sequences), device)]
-    shipped_runs, shipped = run_shipped_eval(sequences, device)
+            run_main_path(ENDODAC, single, device),
+            run_main_path(AFSFM, half_size(single), device)]
+    lap("main path")
+    shipped_runs, shipped = run_shipped_eval(short, device)
     runs += shipped_runs
+    lap("shipped eval")
     evaluate_row = run_evaluate_depth(device)
     afsfm50_row = run_evaluate_depth(device, [*AFSFM, "--num_layers", "50"], h=256, w=320)
+    lap("evaluate_depth")
     for r in runs:
         warm = (f", warm {r['warm_ms_per_frame']:.3f} (inference only)"
                 if "warm_ms_per_frame" in r else "")
         print(f"[main path] {r['name']}: {r['ms_per_frame']:.3f} ms/frame{warm} ({card})")
     streams = [run_streaming(HEADLINE, sequences[0], device, env={"ENDODAV_FUSED_RCU": "1"}),
                run_streaming([], sequences[0], device, env={"ENDODAV_FUSED_RCU": "1"})]
+    lap("streaming")
     for r in streams:
         print(f"[streaming] {r['name']}: median {r['ms_per_push']:.3f} ms a push, "
               f"{r['ms_per_window']:.3f} ms a fired window ({card})")
@@ -4029,6 +4547,7 @@ def main() -> int:
                                   plain_frames=4),
                  run_bf16_serving(VITL_ARGS, sequences[0], device)]
     baseline = run_sequential_baseline(sequences[0], device)
+    lap("bf16 serving, baseline")
     for r in bf16_legs:
         print(f"[bf16 serving] {r['name']}: ms/frame f32 {r['ms_per_frame']['f32']:.3f}, bf16 "
               f"{r['ms_per_frame']['bf16']:.3f}; (max, mean) |Δdisp| bf16 vs f32 "
@@ -4047,12 +4566,16 @@ def main() -> int:
         check_small_step(device, root, env={"ENDODAV_WARP_CP": "1"})
         check_small_step(device, root, dtype="bfloat16")
         check_small_step(device, root, extra=("--num_layers", "50"))
+        lap("small steps")
         deep = check_deep_encoders(device)
         r50 = run_resnet50_training(device, root, r50_weights.name)
+        lap("deep encoders, ResNet-50 training")
         trace_dir = args[args.index("--profile-step") + 1] if "--profile-step" in args else None
         train = run_training(device, root, trace_dir=trace_dir)
+        lap("training")
         dash_errs = check_dash_boundary(device, root)
         ssb_train = run_ssb_training(device, root)
+        lap("dash, ssb training")
         # the other depth models read an endovis split of the tree's sequences
         from endodav_tpu_torch.data.readers import readlines
 
@@ -4062,25 +4585,39 @@ def main() -> int:
         with open(os.path.join(splits, "scared_video", "val_files.txt"), "w") as f:
             f.write("\n".join(readlines(VAL_SPLIT)) + "\n")
         single, single_launches = run_single_frame_training(device, root, splits)
+        lap("single-frame training")
         bf16_train = run_bf16_training(device, root)
         rope_train = run_rope_training(device, root)
+        lap("bf16, RoPE training")
     with tempfile.TemporaryDirectory(prefix="training_script_", dir=os.getcwd()) as root:
         script = run_training_script(device, root)
+        lap("training script")
         # the scripts a user runs after training, on the weights it saved
         weights = os.path.join(root, "log", "endodav", "models", "weights_last")
         hamlyn = run_hamlyn_script(device, root, weights)
         data, splits = os.path.join(root, "data"), os.path.join(root, "splits")
         tools = run_pose_tools(device, data, splits, weights, hamlyn)
+        lap("hamlyn, pose tools")
         pose50 = run_pose_eval_r50(device, data, splits, r50_weights.name)
         r50_weights.cleanup()
         # the shipped scripts no other phase runs
         tv2 = run_train_video2_script(device, data, root)
         tv1 = run_train_video1_script(device, data, root)
+        lap("pose50, train_video2/1")
         eval_sh = run_eval_depth_video_sh(device, data, hamlyn, root)
         export = run_export_gt_depth(data, root)
+        lap("eval_depth_video.sh, export")
     with tempfile.TemporaryDirectory(prefix="training_dac1_", dir=os.getcwd()) as root:
         dac1 = run_dac1_script(device, root)
         dac2 = run_dac2_script(device, root)
+        lap("dac1, dac2")
+    # parallel/: the CLIs' mesh flags on a world of one, two ranks sharing the card
+    with tempfile.TemporaryDirectory(prefix="parallel_", dir=os.getcwd()) as root:
+        data, splits = write_script_tree(root, n_frames=PAR_TREE_FRAMES, h=256, w=320)
+        par_cli = run_parallel_clis(device, data, splits, root, card)
+        lap("parallel CLIs")
+        shared = run_shared_card(device, data, splits, root, card)
+        lap("shared card")
 
     def entry(name, source, replaces, launches, max_abs_err, head, shape, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4223,6 +4760,18 @@ def main() -> int:
                                    + extra_bf16_train.get(k["name"], 0))
         if "bf16_train_launches" in k:
             k["bf16_train_launches"] += extra_bf16_train.get(k["name"], 0)
+    # the shared-card legs' launches (both ranks); rows 1 and 5 by local shape
+    for k in kernels:
+        n = shared["launches"].get(k["name"], 0)
+        if k["name"] == "fused_temporal_block":
+            n -= shared["wide"]
+        elif k["name"] == "fused_temporal_block_grouped":
+            n = shared["wide"]
+        k["launches"] += n
+        k["shared_card"] = n
+    kernels[0]["tp"] = {"launches_by_heads": shared["heads"],
+                        "local_heads": {"vits g=2": 3, "vitl g=2": 8}}
+    kernels[4]["tp"] = {"launches_by_hidden": shared["hidden"], "local_hidden": {"vits g=2": 768}}
     require(len(kernels) == 13, f"{len(kernels)} kernel entries, expected 13")
     missing = [k["name"] for k in kernels if k["launches"] == 0
                and k["name"] != "grid_sample_bwd_fused_cp"]
@@ -4248,12 +4797,15 @@ def main() -> int:
           f"as built vs merged {shipped['as_built_vs_merged']}; ssb training "
           f"(scripts/train_video.sh) step ms {[round(t, 1) for t in ssb_train['step_ms']]}, peak "
           f"{ssb_train['peak_bytes'] / 2 ** 30:.2f} GiB; dash boundary errors {dash_errs} ({card})")
+    src = f"{SCRIPT_HW[0]}x{SCRIPT_HW[1]} sources"
     print(f"[summary] training script (scripts/train_video.sh, one epoch of "
-          f"{len(script['step_ms'])} steps): {script['ms_per_step']:.1f} ms/step, training CLI "
+          f"{len(script['step_ms'])} steps, {src}): {script['ms_per_step']:.1f} ms/step, "
+          f"training CLI "
           f"{script['train_s']:.1f} s (epoch eval {script['eval_s']:.1f} s), eval CLI "
           f"{script['cli_s']:.1f} s, peak {script['peak_bytes'] / 2 ** 30:.2f} GiB ({card})")
     print(f"[summary] train_video_dac1.sh (EndoDAC vits, one epoch of "
-          f"{len(dac1['step_ms'])} steps of 16 frames): {dac1['ms_per_step']:.1f} ms/step, "
+          f"{len(dac1['step_ms'])} steps of 16 frames, {src}): "
+          f"{dac1['ms_per_step']:.1f} ms/step, "
           f"training CLI {dac1['train_s']:.1f} s (epoch eval {dac1['eval_s']:.1f} s), eval CLI "
           f"{dac1['cli_s']:.1f} s, peak {dac1['peak_bytes'] / 2 ** 30:.2f} GiB; "
           + "; ".join(f"{k} step ms {[round(t, 1) for t in r['step_ms']]} peak "
@@ -4286,7 +4838,7 @@ def main() -> int:
     print(f"[summary] vitg 518x644, {VITG_FRAMES} frames, ms/frame: "
           + ", ".join(f"{k} {v['ms_per_frame']:.2f} (peak {v['peak_bytes'] / 2 ** 30:.2f} GiB)"
                       for k, v in vitg["legs"].items()) + f" ({card})")
-    print(f"[summary] train_video2.sh {tv2['ms_per_step']:.1f} ms/step, training CLI "
+    print(f"[summary] ({src}) train_video2.sh {tv2['ms_per_step']:.1f} ms/step, training CLI "
           f"{tv2['train_s']:.1f} s, eval CLI {tv2['cli_s']:.1f} s, scared --pred_root "
           f"{tv2['rescore_s']:.1f} s (within {tv2['rescore_rel']:.2e}); train_video1.sh "
           f"{tv1['ms_per_step']:.1f} ms/step, training CLI {tv1['train_s']:.1f} s, eval CLI with "
@@ -4294,6 +4846,16 @@ def main() -> int:
           f"{dac2['cli_s']:.1f} s; eval_depth_video.sh pose eval {eval_sh['pose_s']:.1f} s, "
           f"Hamlyn {eval_sh['hamlyn_s']:.1f} s ({eval_sh['hamlyn_ms_per_frame']:.3f} ms/frame); "
           f"export_gt_depth.sh {export['export_s']:.1f} s ({card})")
+    print(f"[summary] parallel/: CLIs on a world of one (NCCL) seconds "
+          f"{ {k: round(v, 1) for k, v in par_cli['seconds'].items()} }; two ranks sharing the "
+          f"card over gloo (not a speed of TP or DP) ms/frame and ms/step "
+          f"{ {k: v if isinstance(v, list) else round(v, 3) for k, v in shared['ms'].items()} }, "
+          f"data=2 vs data=1 {shared['dp']['loss_rel']:.2e} (losses), statistics "
+          f"{shared['dp']['stat_err']} (steps 1, 2), weights (a component's sum of |Δ| over "
+          f"its update's) {shared['dp']['weight_rel']}, the largest leaf's "
+          f"{shared['dp']['worst_leaf']} ({card})")
+    print(f"[summary] seconds a phase {laps}, in all {sum(laps.values()):.1f} s; of the kernel "
+          f"checks {check_s} ({card})")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

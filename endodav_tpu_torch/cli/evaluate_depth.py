@@ -11,7 +11,10 @@ instead of a model.  Prints the same lines as JAX's CLI.
 
 ``--post_process`` runs every image a second time, flipped, and keeps the
 unflipped result, as the reference does (its blend is never called);
-``--post_process_blend`` applies the Monodepth-v1 blend of the two.
+``--post_process_blend`` applies the Monodepth-v1 blend of the two.  ``--serve_mesh model=N``
+serves EndoDAC through the tensor-parallel trunk over N ranks, which the
+CLI starts; ``data=N`` runs the whole eval on each of N ranks (JAX's
+single-frame path ignores it).  Rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from endodav_tpu_torch.eval import metrics as M
 from endodav_tpu_torch.geometry.transforms import disp_to_depth
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.options import EndoDAVOptions
+from endodav_tpu_torch.parallel import is_main, run_cli
 
 HEADER = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
 BATCH = 8
@@ -68,7 +72,7 @@ def model_disparities(opt, imgs: np.ndarray, device) -> tuple[np.ndarray, float]
     """The model's disparity [N, h', w'] of images [N, H, W, 3] in [0, 1]
     (with ``--post_process[_blend]`` the flipped pass too), in batches of
     BATCH on ``device``, the last at its own size; and the ms per image."""
-    fwd = engine.depth_window_forward(engine.build_depth_model(opt, device))
+    fwd = engine.depth_window_forward(engine.build_depth_model(opt, device), opt)
     n_real = len(imgs)
     flipped = opt.post_process or opt.post_process_blend
     if flipped:
@@ -128,7 +132,7 @@ def evaluate(opt):
         pred = np.clip(pred, 1e-3, max_depth)
         errors.append(M.compute_errors(gt, pred, mask))
 
-    if opt.save_pred_disps and pred_disps is None and opt.load_weights_folder:
+    if opt.save_pred_disps and pred_disps is None and opt.load_weights_folder and is_main():
         out = os.path.join(os.path.expanduser(opt.load_weights_folder),
                            f"disps_{opt.eval_split}_split.npy")
         np.save(out, np.array(saved_disps, dtype=object), allow_pickle=True)
@@ -148,8 +152,8 @@ def evaluate(opt):
     return mean_errors
 
 
-def main():
-    evaluate(EndoDAVOptions().parse())
+def main(args=None):
+    return run_cli(evaluate, EndoDAVOptions().parse(args), training=False)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ paper's single-frame baselines), aligns, and prints the per-frame depth
 errors with TAE/TAS, the abs_rel 95% CI and the mean inference time per
 frame — the same lines as `endodav_tpu`'s CLI.  ``--visualize_depth``
 writes each sequence's vis.mp4 and aligned depth .npy files under
-``<load_weights_folder>/eval/<eval_split>``.
+``<load_weights_folder>/eval/<eval_split>``.  ``--serve_mesh data=N`` or
+``model=N`` serves over N ranks, which the CLI starts (or joins, under
+``torchrun``); rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from endodav_tpu_torch.data.readers import readlines
 from endodav_tpu_torch.data.scared import ScaredVideos
 from endodav_tpu_torch.eval import engine
 from endodav_tpu_torch.options import EndoDAVOptions
+from endodav_tpu_torch.parallel import is_main, run_cli
 
 
 def report(result) -> list[str]:
@@ -49,12 +52,12 @@ def evaluate(opt):
     device = engine.resolve_device(opt)
     forward = None
     if opt.pred_root is None:
-        forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
+        forward = engine.depth_window_forward(engine.build_depth_model(opt, device), opt)
     result = engine.evaluate_video_sequences(opt, sequences, forward, device=device,
                                              save_folder=save_folder(opt))
     lines = report(result)
     print("\n".join(lines))
-    if opt.load_weights_folder:
+    if opt.load_weights_folder and is_main():
         out = os.path.join(os.path.dirname(os.path.expanduser(opt.load_weights_folder)),
                            "results.txt")
         with open(out, "a") as f:
@@ -62,8 +65,8 @@ def evaluate(opt):
     return result
 
 
-def main():
-    evaluate(EndoDAVOptions().parse())
+def main(args=None):
+    return run_cli(evaluate, EndoDAVOptions().parse(args), training=False)
 
 
 if __name__ == "__main__":

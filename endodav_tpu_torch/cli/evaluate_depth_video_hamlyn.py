@@ -9,7 +9,8 @@ saved depth .npy files re-scored (``--disp2depth`` if they hold
 disparities).  No poses, so no TAE/TAS.  Prints the alignment summary, the
 metric line, the per-metric 95% CI row and the mean inference time;
 ``--visualize_depth`` writes each sequence's vis.mp4 and aligned depth .npy
-files under ``<load_weights_folder>/eval/<eval_split>``.
+files under ``<load_weights_folder>/eval/<eval_split>``.  ``--serve_mesh``
+serves over ranks as `cli/evaluate_depth_video` does.
 
     python -m endodav_tpu_torch.cli.evaluate_depth_video_hamlyn --data_path <hamlyn> \
         --eval_split hamlyn_video --load_weights_folder <weights> --eval_mono \
@@ -25,6 +26,7 @@ from endodav_tpu_torch.data.hamlyn import HamlynVideos
 from endodav_tpu_torch.data.readers import readlines
 from endodav_tpu_torch.eval import engine
 from endodav_tpu_torch.options import EndoDAVOptions
+from endodav_tpu_torch.parallel import run_cli
 
 HEADER = engine.METRIC_NAMES[:7]
 
@@ -36,7 +38,7 @@ def evaluate(opt):
     device = engine.resolve_device(opt)
     forward = None
     if opt.pred_root is None:
-        forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
+        forward = engine.depth_window_forward(engine.build_depth_model(opt, device), opt)
     result = engine.evaluate_video_sequences(opt, sequences, forward, device=device,
                                              with_temporal=False, save_folder=save_folder(opt))
     # alignment summary + per-metric CI rows (evaluate_depth_video_hamlyn.py:228-258)
@@ -49,7 +51,7 @@ def evaluate(opt):
 
 
 def main(argv=None):
-    return evaluate(EndoDAVOptions().parse(argv))
+    return run_cli(evaluate, EndoDAVOptions().parse(argv), training=False)
 
 
 if __name__ == "__main__":

@@ -20,13 +20,14 @@ from endodav_tpu_torch.data.readers import readlines
 from endodav_tpu_torch.data.scared import ScaredVideos
 from endodav_tpu_torch.eval import engine
 from endodav_tpu_torch.options import EndoDAVOptions
+from endodav_tpu_torch.parallel import run_cli
 
 
 def evaluate(opt):
     filenames = readlines(os.path.join(engine.splits_dir(), opt.eval_split, "test_files.txt"))
     sequences = ScaredVideos(opt.data_path, filenames)
     device = engine.resolve_device(opt)
-    forward = engine.depth_window_forward(engine.build_depth_model(opt, device))
+    forward = engine.depth_window_forward(engine.build_depth_model(opt, device), opt)
     depth = engine.evaluate_video_sequences(opt, sequences, forward, device=device)
     engine.print_alignment_summary(opt.depth_align, depth["ratios"], depth["align_stats"])
     print(report(depth)[0])
@@ -49,8 +50,8 @@ def evaluate(opt):
     return {"depth": depth, "pose": pose_results}
 
 
-def main():
-    evaluate(EndoDAVOptions().parse())
+def main(argv=None):
+    return run_cli(evaluate, EndoDAVOptions().parse(argv), training=False)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,10 @@
 Numpy copy of `endodav_tpu/data/loader.py`: `num_workers` threads decode
 and collate batches while the card runs the current step, and a
 sequencer emits them in order, so batch order and sampling are the same
-for any worker count (the datasets draw per-item rngs).
+for any worker count (the datasets draw per-item rngs).  With ``shard``
+(rank, ranks) a data-parallel rank loads only its slice of each global
+batch: the shuffle and every item's draws are the single process's, so a
+data=N step sees the data=1 step's batch.
 """
 
 from __future__ import annotations
@@ -31,9 +34,14 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 314, prefetch: int = 2,
-                 num_workers: int = 1):
+                 num_workers: int = 1, shard: tuple[int, int] = (0, 1)):
+        rank, ranks = shard
+        if batch_size % ranks:
+            raise ValueError(f"the batch of {batch_size} is not divisible by the data axis "
+                             f"of {ranks}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = (rank, ranks)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
@@ -54,6 +62,9 @@ class Loader:
             self.rng.shuffle(order)
         batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)
                    if not (self.drop_last and i + self.batch_size > len(order))]
+        rank, ranks = self.shard
+        if ranks > 1:  # this rank's slice of each global batch
+            batches = [b[rank * len(b) // ranks:(rank + 1) * len(b) // ranks] for b in batches]
         if not batches:
             return
 

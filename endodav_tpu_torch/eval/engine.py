@@ -25,7 +25,14 @@ change how XLA compiles the same function; the port runs eagerly and has
 neither.  Every LoRA variant serves.  A Dash model serves in the phase
 that ``depth_model.msgpack.meta.json`` records (``dash_phase2``, JAX
 :110-116), merged in that phase under ``--merge_lora``; from a ``.pth`` it
-serves in phase 1, as JAX does.  ``--serve_mesh`` is not ported.
+serves in phase 1, as JAX does.
+
+``--serve_mesh`` (JAX :212-245, :442-447): ``model=N`` serves through the
+tensor-parallel trunk of `parallel/tp.py` on the window path (no auto
+int8, no dedup, as JAX's TP branch returns before both), and needs the
+merged graph; ``data=N`` shards each chunk's windows over N ranks
+(`infer_video_depth`'s ``mesh``).  Either runs inside the N ranks that
+the CLIs start (`parallel.launch`).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from endodav_tpu_torch.models.afsfm import AFSfMDepth
 from endodav_tpu_torch.models.endodac import EndoDAC, endodac_lora_alpha
 from endodav_tpu_torch.models.endodav import EndoDAV, endodav_lora_alpha
 from endodav_tpu_torch.models.lora import LoRADense, merge_lora_params, set_dash_phase2
+from endodav_tpu_torch.parallel import build_mesh, is_main
 from endodav_tpu_torch.utils.checkpoint import load_components, load_metadata
 from endodav_tpu_torch.utils.convert import load_reference_pth
 from endodav_tpu_torch.utils.precision import set_f32_policy
@@ -231,7 +239,29 @@ def load_component(opt, name: str, module: torch.nn.Module) -> torch.nn.Module:
     return module
 
 
-def depth_window_forward(model: torch.nn.Module):
+def _tp_forward(model: torch.nn.Module, spec: str):
+    """``--serve_mesh model=N``: the TP forward over the world's first N
+    ranks (JAX :220-245)."""
+    from endodav_tpu_torch.models.vit import VIT_CONFIGS
+    from endodav_tpu_torch.parallel.tp import build_tp_mesh, tp_local_model, tp_window_forward
+
+    model_type = getattr(model, "model_type", "endodav")
+    if model_type not in ("endodav", "endodac"):
+        raise ValueError(
+            "--serve_mesh model=N covers the endodav/endodac ViT models; "
+            f"model_type={model_type!r} serving is single-device (and its "
+            "path ignores data=N too)")
+    if getattr(model, "lora_type", "none") != "none":
+        raise ValueError("--serve_mesh model=N needs the merged serving graph: "
+                         "pass --merge_lora (or lora_type none)")
+    size = getattr(model, "encoder", None) or model.backbone_size
+    g = int(spec.split("=", 1)[1])
+    mesh = build_tp_mesh(g)
+    return tp_window_forward(tp_local_model(model, g), model.state_dict(), mesh,
+                             num_heads=VIT_CONFIGS[size]["num_heads"])
+
+
+def depth_window_forward(model: torch.nn.Module, opt=None):
     """EndoDAV: [C, T, h, w, 3] -> [C*T, h', w', 1] sigmoid disparity at
     scale 0, with the serving defaults: int8 GEMMs for the merged vitl graph (unless
     ``ENDODAV_INT8`` is set either way), on a shallow copy of ``model`` so
@@ -244,11 +274,18 @@ def depth_window_forward(model: torch.nn.Module):
 
     A single-frame model (EndoDAC, AF-SfM): [B, h, w, 3] -> [B, h', w', 1],
     with ``fwd.dedup`` None (JAX :395-405).  Prints the model type and the
-    A/B switches set (`SERVE_SWITCHES`)."""
+    A/B switches set (`SERVE_SWITCHES`).
+
+    ``opt.serve_mesh`` 'model=N' returns the tensor-parallel forward
+    (`_tp_forward`) of either model type, with ``fwd.dedup`` None."""
+    spec = (getattr(opt, "serve_mesh", "") or "") if opt is not None else ""
     switches = [n for n in SERVE_SWITCHES if os.environ.get(n)]
     model_type = getattr(model, "model_type", "endodav")
     print(f"[serve] forward: model_type={model_type}"
+          + (f" serve_mesh={spec}" if spec else "")
           + (f" env={'+'.join(switches)}" if switches else ""))
+    if spec.startswith("model="):
+        return _tp_forward(model, spec)
     if model_type != "endodav":
         def fwd_single(batch: torch.Tensor) -> torch.Tensor:
             with torch.inference_mode():
@@ -319,6 +356,8 @@ def evaluate_video_sequences(opt, sequences, forward=None, device=None, max_dept
     and the mean inference time per frame.
     """
     device = resolve_device(opt) if device is None else device
+    # ``--serve_mesh data=N``: the window path over N ranks (JAX :442-447)
+    mesh = build_mesh(getattr(opt, "serve_mesh", "") or "", default_all=False, allow_model=True)
     errors, errors_temp, ratios, align_stats, per_sequence, infer_times = [], [], [], [], [], []
     for data in sequences:
         if "pred_depths" in data:
@@ -334,7 +373,7 @@ def evaluate_video_sequences(opt, sequences, forward=None, device=None, max_dept
                                          image_shape=tuple(opt.depth_image_shape),
                                          chunk_windows=opt.chunk_windows, device=device,
                                          stitch="device" if opt.fast_stitch else "host",
-                                         dedup=getattr(forward, "dedup", None))
+                                         dedup=getattr(forward, "dedup", None), mesh=mesh)
             else:
                 disp = infer_video_depth_single_frame(forward, data["colors"], device=device)
             infer_times.append((time.perf_counter() - t0) / len(data["colors"]) * 1000.0)
@@ -350,7 +389,7 @@ def evaluate_video_sequences(opt, sequences, forward=None, device=None, max_dept
                                                           max_depth)
             align_stats.append(stats)
 
-        if opt.visualize_depth and save_folder and "colors" in data:
+        if opt.visualize_depth and save_folder and "colors" in data and is_main():
             seq_dir = os.path.join(save_folder, data.get("filename", f"seq{len(per_sequence)}"))
             depth_dir = os.path.join(seq_dir, "depth")
             os.makedirs(depth_dir, exist_ok=True)

@@ -1,4 +1,5 @@
-"""Sliding-window full-video depth inference on one device.
+"""Sliding-window full-video depth inference, on one device or over a
+data mesh.
 
 Port of `endodav_tpu/eval/video_inference.py:infer_video_depth`: the
 window path, the dedup path (`DedupWindowForward`) and both stitches;
@@ -40,6 +41,7 @@ from endodav_tpu_torch.models.endodav import (ENDODAV_CONFIGS, INFER_LEN, INTERP
                                               OVERLAP, prefix_map_shapes)
 from endodav_tpu_torch.models.vit import VIT_CONFIGS
 from endodav_tpu_torch.ops.resize import resize2d
+from endodav_tpu_torch.parallel import all_gather_rows, data_sharding
 from endodav_tpu_torch.utils.envflags import env_auto, env_on
 
 __all__ = ["keep_aspect_size", "window_indices", "stitch_plan", "infer_video_depth",
@@ -315,6 +317,7 @@ def infer_video_depth(
     dedup: DedupWindowForward | None = None,
     transfer_dtype=np.float32,
     sequential: bool = False,
+    mesh=None,
 ) -> np.ndarray:
     """Full-video sigmoid-disparity inference.
 
@@ -333,11 +336,19 @@ def infer_video_depth(
     sequential: one window a chunk, on the window path, each synchronised
       by its copy to the host before the next runs (the baseline of the
       TPU benchmark, `bench.py:129-132`).
+    mesh: a `parallel.Mesh` with a ``data`` axis of N ranks (JAX :582,
+      :625-631): dedup is off, ``chunk_windows`` must be a multiple of N,
+      each rank runs its N-th of every chunk's windows and every rank
+      gathers the whole chunk's output before the stitch.
     Returns the stitched raw disparity [N, H, W] at source resolution, as
     JAX's: float64 from the host stitch, f32 from the device stitch.
     """
     if stitch not in ("host", "device"):
         raise ValueError(f"stitch must be 'host' or 'device', got {stitch!r}")
+    data = 1 if mesh is None else mesh.axis_size("data")
+    if mesh is not None:
+        assert chunk_windows % data == 0, (
+            "chunk_windows must be a multiple of the mesh 'data' axis")
     device = torch.device(device)
     n, fh, fw, _ = frames.shape
     th, tw = keep_aspect_size(fh, fw, *image_shape)
@@ -353,7 +364,8 @@ def infer_video_depth(
     chunk_dtype = torch.float32 if stitch == "device" else transfer
     outs = []
     with torch.inference_mode():
-        if dedup is not None and not sequential and not env_on("ENDODAV_NO_DEDUP"):
+        if (dedup is not None and not sequential and mesh is None
+                and not env_on("ENDODAV_NO_DEDUP")):
             fb = dedup.encode_batch_for(n)
             pad_fidx = np.minimum(np.arange(-(-n // fb) * fb), n - 1)
             parts = [dedup.encode(upload_resized(frames[pad_fidx[b0:b0 + fb]], scale, th, tw,
@@ -376,7 +388,11 @@ def infer_video_depth(
             for c0 in range(0, pad_to, chunk_windows):
                 w_idx = torch.from_numpy(idx_padded[c0:c0 + chunk_windows].reshape(-1)).to(device)
                 win = resized.index_select(0, w_idx).reshape(chunk_windows, INFER_LEN, th, tw, 3)
-                out = run(win)
+                if data > 1:  # this rank's windows, then every rank's outputs
+                    out = all_gather_rows(run(win[data_sharding(chunk_windows, mesh)]),
+                                          mesh.group("data"))
+                else:
+                    out = run(win)
                 outs.append(out.cpu() if sequential else out)
         if stitch == "device":
             return _device_stitch(outs, num_windows, n, fh, fw, transfer, device)

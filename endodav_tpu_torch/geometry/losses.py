@@ -3,12 +3,19 @@
 Port of `endodav_tpu/geometry/losses.py`: SSIM, the 0.85*SSIM + 0.15*L1
 reprojection loss, edge-aware smoothness, the residue-aware appearance
 smoothness, flow smoothness, local NCC and the reverse Huber loss.
+
+The means and sums over the batch are over the global batch inside a
+`parallel.data_parallel` block (numerator and denominator summed over the
+data ranks, JAX :63, :77, :84, :116 under its mesh); elsewhere they are
+the plain reductions.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from endodav_tpu_torch.parallel import global_max, global_mean, global_sum
 
 __all__ = ["abs_jax", "clip_jax", "ssim", "reprojection_loss", "smooth_loss", "smooth_bright",
            "smooth_registration", "ncc", "berhu"]
@@ -66,7 +73,7 @@ def smooth_loss(disp, img):
     """Edge-aware first-order smoothness; inputs [B, H, W, C]."""
     gix = _dx(img).mean(-1, keepdim=True)
     giy = _dy(img).mean(-1, keepdim=True)
-    return (_dx(disp) * torch.exp(-gix)).mean() + (_dy(disp) * torch.exp(-giy)).mean()
+    return global_mean(_dx(disp) * torch.exp(-gix)) + global_mean(_dy(disp) * torch.exp(-giy))
 
 
 def smooth_bright(transform, target, pred, occu_mask):
@@ -78,13 +85,13 @@ def smooth_bright(transform, target, pred, occu_mask):
     gry = _dy(residue).mean(-1, keepdim=True)
     mask_x = occu_mask[:, :, :-1]
     mask_y = occu_mask[:, :-1, :]
-    return ((gtx * torch.exp(-grx) * mask_x).sum() / mask_x.sum()
-            + (gty * torch.exp(-gry) * mask_y).sum() / mask_y.sum())
+    return (global_sum((gtx * torch.exp(-grx) * mask_x).sum()) / global_sum(mask_x.sum())
+            + global_sum((gty * torch.exp(-gry) * mask_y).sum()) / global_sum(mask_y.sum()))
 
 
 def smooth_registration(position):
     """First-order flow smoothness without edge weighting."""
-    return _dx(position).mean() + _dy(position).mean()
+    return global_mean(_dx(position)) + global_mean(_dy(position))
 
 
 def ncc(i, j, win: int = 5):
@@ -109,6 +116,6 @@ def berhu(pred, target):
     (d^2 + c^2) / 2c above it; the mean."""
     diff = pred - target
     abs_diff = abs_jax(diff)
-    c = 0.2 * abs_diff.max().detach()
+    c = 0.2 * global_max(abs_diff)
     l2 = (diff ** 2 + c ** 2) / (2.0 * c)
-    return torch.where(abs_diff <= c, abs_diff, l2).mean()
+    return global_mean(torch.where(abs_diff <= c, abs_diff, l2))

@@ -6,12 +6,13 @@ nvcc per source, all started together, then one link into a shared
 library under `endodav_tpu_torch/_build/`, named by a hash of the
 sources and flags.  The library is built at first use and loaded with
 `ctypes`; nothing here runs at import time, and a failed build raises
-with nvcc's output.
+with nvcc's output.  A file lock serialises the build across processes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -21,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "build_log", "check", "dtype_code", "stream_of"]
+__all__ = ["library", "compile_library", "build_log", "check", "dtype_code", "stream_of"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -98,12 +99,25 @@ def _compile() -> Path:
     return so
 
 
+def compile_library() -> Path:
+    """Build the shared library if no process has built it yet, and return
+    its path.  A file lock under `_build/` makes processes that start
+    together (the ranks of `parallel.launch`) wait for one build."""
+    _BUILD.mkdir(exist_ok=True)
+    with open(_BUILD / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _compile()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_compile()))
+            lib = ctypes.CDLL(str(compile_library()))
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -16,9 +16,10 @@ bf16.  The resize and ``pre_norm`` stay in the input's dtype.
 
 Adapters: every variant of `models/lora.py`.  ``train`` reaches the
 head, where it only matters with ``use_bn`` (batch statistics, recorded
-as pending) and for the fused RCU route (serving only).  Not ported: the
-JAX fields ``tp_groups`` and ``scan_trunk`` (tensor parallelism and XLA's
-compile of the trunk).
+as pending) and for the fused RCU route (serving only).  ``tp_groups``
+and ``tp_group`` (JAX :61, :86) make the trunk the local view of a
+tensor-parallel split (`parallel/tp.py`).  Not ported: JAX's
+``scan_trunk``, which only changes how XLA compiles the trunk.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ class EndoDAC(nn.Module):
                  residual_block_indexes: Sequence[int] = (), include_cls_token: bool = True,
                  use_cls_token: bool = False, use_bn: bool = False, pre_norm: bool = False,
                  inv_sigmoid: bool = False, conv_head: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp_groups: int = 1, tp_group=None):
         super().__init__()
         self.config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         self.backbone_size = backbone_size
@@ -72,7 +73,8 @@ class EndoDAC(nn.Module):
         self.pretrained = DinoViT(
             **vit_cfg, residual_block_indexes=tuple(residual_block_indexes),
             include_cls_token=include_cls_token, lora_variant=lora_type, lora_rank=r,
-            lora_alpha=endodac_lora_alpha(lora_type, r), dtype=dtype)
+            lora_alpha=endodac_lora_alpha(lora_type, r), dtype=dtype, tp_groups=tp_groups,
+            tp_group=tp_group)
         self.depth_head = DPTDecoder(
             in_channels=vit_cfg["embed_dim"], features=cfg["features"],
             out_channels=cfg["out_channels"], conv_head=conv_head, inv_sigmoid=inv_sigmoid,

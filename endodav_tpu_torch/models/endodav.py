@@ -16,6 +16,10 @@ A shallow copy with the flag changed shares every weight with the
 original, the port's counterpart of flax's ``model.clone(int8_serving=
 True)``.
 
+``tp_groups`` and ``tp_group`` (JAX :83, :108) make the trunk the local
+view of a tensor-parallel split over that process group
+(`parallel/tp.py`); the head stays whole.
+
 ``dtype`` is the compute dtype of JAX's ``EndoDAV.dtype`` (:120), passed
 to the trunk and the head: f32 by default; ``torch.bfloat16`` serves as
 the TPU benchmark's headline does (`bench.py:96-105`).  The parameters
@@ -81,7 +85,7 @@ class EndoDAV(nn.Module):
                  num_frames: int = 32, inv_sigmoid: bool = False, temporal_lora: bool = False,
                  conv_head: bool = True, out_sigmoid: bool = False,
                  int8_serving: bool = False, pos_embedding_type: str = "ape",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp_groups: int = 1, tp_group=None):
         super().__init__()
         self.config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         self.encoder = encoder
@@ -95,7 +99,7 @@ class EndoDAV(nn.Module):
         self.pretrained = DinoViT(
             **vit_cfg, residual_block_indexes=tuple(residual_block_indexes),
             include_cls_token=include_cls_token, lora_variant=lora_type, lora_rank=r,
-            lora_alpha=alpha, dtype=dtype)
+            lora_alpha=alpha, dtype=dtype, tp_groups=tp_groups, tp_group=tp_group)
         self.head = DPTDecoder(
             in_channels=vit_cfg["embed_dim"], features=cfg["features"],
             out_channels=cfg["out_channels"], num_frames=num_frames, conv_head=conv_head,

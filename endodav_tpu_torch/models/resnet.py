@@ -18,6 +18,9 @@ same variance.  A train-mode call only records its batch statistics;
 encoder several times only the last application's statistics are stored
 (`endodav_tpu/train/trainer.py:19-21`); `discard_batch_stats` drops them
 where JAX's step throws the new statistics away (the depth model's).
+Inside a `parallel.data_parallel` block the statistics are the global
+batch's, summed over the data ranks (forward, backward and the committed
+running statistics), as XLA computes them under JAX's mesh.
 
 ``dtype`` is the compute dtype of JAX's ``ResNetEncoder.dtype``: every
 convolution casts its input and kernel to it (`models/cast.py`).  JAX's
@@ -34,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from endodav_tpu_torch.models.cast import conv_nhwc
+from endodav_tpu_torch.parallel import data_mesh, global_sum
 
 __all__ = ["BatchNorm", "ResNetEncoder", "resnet_num_ch_enc", "commit_batch_stats",
            "discard_batch_stats"]
@@ -71,8 +75,14 @@ class BatchNorm(nn.Module):
         if train:
             xf = x.float()
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            mesh = data_mesh()
+            if mesh is None:
+                mean, sq = xf.mean(dims), (xf * xf).mean(dims)
+            else:  # the global batch's moments, summed over the data ranks
+                count = x.numel() // x.shape[-1] * mesh.axis_size("data")
+                mean, sq = (global_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]))
+                            / count).unbind(0)
+            var = (sq - mean * mean).clamp_min(0.0)
             self.pending = (mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var

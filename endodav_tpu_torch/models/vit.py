@@ -17,6 +17,16 @@ fc1/fc2 through `int8_dense`; ``ENDODAV_FUSED_MLP`` (default off) sends
 the MLP of the merged graph without int8 through the fused-MLP kernel
 (an adapted MLP, ssb's included, never takes it: JAX :90-92).
 
+Tensor parallelism (`parallel/tp.py`, JAX :63-116, :160-200, :274-320):
+with ``tp_groups`` g > 1 a block is the local view of a g-way Megatron
+split.  Its attention holds H/g heads (qkv 3C/g output rows, proj C/g
+input columns) and its MLP 4C/g hidden units, the fused route included;
+each sums its partial output over ``tp_group`` (a `torch.distributed`
+process group), whose biases `tp_prepare_params` divides by g.  int8
+then quantises the local slices (per-row scales over the C/g or 4C/g
+inputs of proj and fc2), as JAX's does, so TP int8 is not the
+single-device int8.
+
 ``dtype`` is the compute dtype of JAX's ``DinoViT.dtype`` (f32 by
 default; the TPU benchmark serves bf16): parameters stay f32 and every
 module casts where flax does (`models/cast.py`).  The cls and position
@@ -37,6 +47,7 @@ from endodav_tpu_torch.kernels.fused_mlp import fused_mlp
 from endodav_tpu_torch.models.cast import conv_nhwc, dense, layer_norm
 from endodav_tpu_torch.models.lora import LoRADense
 from endodav_tpu_torch.ops.attention import fused_qkv_attention
+from endodav_tpu_torch.parallel import all_reduce_sum
 from endodav_tpu_torch.ops.quant import int8_dense, resolve_int8
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.utils.envflags import env_on
@@ -52,10 +63,14 @@ VIT_CONFIGS = {
 
 
 class Mlp(nn.Module):
+    """fc1 -> exact gelu -> fc2; ``hidden`` is the local width under tensor
+    parallelism, whose partial output is summed over ``tp_group``."""
+
     def __init__(self, dim: int, hidden: int, lora_variant: str, lora_rank: int,
-                 lora_alpha: float | None, dtype: torch.dtype = torch.float32):
+                 lora_alpha: float | None, dtype: torch.dtype = torch.float32, tp_group=None):
         super().__init__()
         self.dtype = dtype
+        self.tp_group = tp_group
         self.fc1 = LoRADense(dim, hidden, lora_rank, lora_alpha, lora_variant, dtype)
         self.fc2 = LoRADense(hidden, dim, lora_rank, lora_alpha, lora_variant, dtype)
 
@@ -64,9 +79,11 @@ class Mlp(nn.Module):
             dt = self.dtype
             # the JAX layout: views of the parameters at f32, of their casts at bf16
             w1, w2 = (lin.weight.to(dt).t() for lin in (self.fc1, self.fc2))
-            return fused_mlp(x.to(dt).contiguous(), w1, self.fc1.bias.float(), w2,
-                             self.fc2.bias.float())
-        return self.fc2(F.gelu(self.fc1(x, quant_int8)), quant_int8)
+            y = fused_mlp(x.to(dt).contiguous(), w1, self.fc1.bias.float(), w2,
+                          self.fc2.bias.float())
+        else:
+            y = self.fc2(F.gelu(self.fc1(x, quant_int8)), quant_int8)
+        return all_reduce_sum(y, self.tp_group)
 
 
 class SwiGLUFFN(nn.Module):
@@ -87,22 +104,30 @@ class SwiGLUFFN(nn.Module):
 
 
 class SpatialAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    """Fused-QKV attention over ``num_heads`` local heads (H/g under tensor
+    parallelism: qkv 3C/g rows, proj C/g columns, the output summed over
+    ``tp_group``)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 tp_groups: int = 1, tp_group=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.tp_group = tp_group
+        self.qkv = nn.Linear(dim, 3 * dim // tp_groups)
+        self.proj = nn.Linear(dim // tp_groups, dim)
 
     def forward(self, x, quant_int8: bool = False):
         dt = self.dtype
         if quant_int8:  # the f32 weights, quantized inside (JAX :153-158)
             out = fused_qkv_attention(x, self.qkv.weight, self.qkv.bias, self.num_heads,
                                       quant_int8=True)
-            return int8_dense(out, self.proj.weight, self.proj.bias, out_dtype=dt)
-        out = fused_qkv_attention(x, self.qkv.weight.to(dt), self.qkv.bias.to(dt),
-                                  self.num_heads)
-        return dense(self.proj, out, dt)
+            out = int8_dense(out, self.proj.weight, self.proj.bias, out_dtype=dt)
+        else:
+            out = fused_qkv_attention(x, self.qkv.weight.to(dt), self.qkv.bias.to(dt),
+                                      self.num_heads)
+            out = dense(self.proj, out, dt)
+        return all_reduce_sum(out, self.tp_group)
 
 
 class LayerScale(nn.Module):
@@ -156,18 +181,28 @@ class ViTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, use_residual_block: bool,
                  include_cls_token: bool, lora_variant: str, lora_rank: int,
                  lora_alpha: float | None, dtype: torch.dtype = torch.float32,
-                 ffn_layer: str = "mlp"):
+                 ffn_layer: str = "mlp", tp_groups: int = 1, tp_group=None):
         super().__init__()
+        if num_heads % tp_groups or (4 * dim) % tp_groups:
+            raise ValueError(
+                f"tp_groups={tp_groups} must divide num_heads={num_heads} and the MLP "
+                f"hidden width {4 * dim} — a floor-divided local view would silently drop "
+                "width")
         self.ofs = 1 if include_cls_token else 0
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = SpatialAttention(dim, num_heads, dtype)
+        self.attn = SpatialAttention(dim, num_heads // tp_groups, dtype, tp_groups, tp_group)
         self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         if ffn_layer == "swiglu":
+            if tp_groups > 1:
+                raise NotImplementedError(
+                    "tensor parallelism covers the default MLP FFN only "
+                    "(no reference config uses swiglu; vision_transformer.py:124-129)")
             self.mlp = SwiGLUFFN(dim, 4 * dim, dtype)
         elif ffn_layer == "mlp":
-            self.mlp = Mlp(dim, 4 * dim, lora_variant, lora_rank, lora_alpha, dtype)
+            self.mlp = Mlp(dim, 4 * dim // tp_groups, lora_variant, lora_rank, lora_alpha,
+                           dtype, tp_group)
         else:
             raise ValueError(f"ffn_layer {ffn_layer!r}: mlp or swiglu")
         self.ls2 = LayerScale(dim)
@@ -200,15 +235,16 @@ class PatchEmbed(nn.Module):
 class DinoViT(nn.Module):
     """DINOv2 ViT trunk; ``forward(images, take_indices)`` returns a list
     of (patch_tokens [B, N, C], cls [B, C]) per tap, post final LayerNorm;
-    ``quant_int8`` asks for the int8 serving GEMMs (resolved here, once a
-    forward, against ``ENDODAV_INT8``)."""
+    ``tp_groups`` > 1 builds the local view of a tensor-parallel trunk over
+    ``tp_group``; ``quant_int8`` asks for the int8 serving GEMMs (resolved
+    here, once a forward, against ``ENDODAV_INT8``)."""
 
     def __init__(self, embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  patch_size: int = 14, pos_grid: int = 37,
                  residual_block_indexes: Sequence[int] = (), include_cls_token: bool = True,
                  lora_variant: str = "none", lora_rank: int = 4,
                  lora_alpha: float | None = None, dtype: torch.dtype = torch.float32,
-                 ffn_layer: str = "mlp"):
+                 ffn_layer: str = "mlp", tp_groups: int = 1, tp_group=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.patch_size = patch_size
@@ -223,7 +259,7 @@ class DinoViT(nn.Module):
         residual = set(int(i) for i in residual_block_indexes)
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, num_heads, i in residual, include_cls_token,
-                     lora_variant, lora_rank, lora_alpha, dtype, ffn_layer)
+                     lora_variant, lora_rank, lora_alpha, dtype, ffn_layer, tp_groups, tp_group)
             for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 

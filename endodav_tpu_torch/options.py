@@ -4,8 +4,9 @@ The flags of `endodav_tpu/options.py`, with the same names, defaults and
 choices so shell scripts carry over (``scripts/train_video.sh`` runs both
 its commands on the port's CLIs), inert where JAX's are (README "Flags
 that are accepted but intentionally inert"), plus ``--seed`` for the
-random init used when no weights are given.  ``--mesh_shape`` and
-``--serve_mesh`` are not ported (one card).
+random init used when no weights are given.  ``--mesh_shape data=N``
+trains over N ranks and ``--serve_mesh data=N|model=N`` serves over N
+(`parallel/`); the CLIs start the ranks themselves, or join ``torchrun``'s.
 ``--no_cuda`` selects the CPU; without it the port runs on CUDA and fails
 when there is no GPU.
 """
@@ -130,7 +131,10 @@ class EndoDAVOptions:
         # SYSTEM
         p.add_argument("--no_cuda", action="store_true", help="run on the CPU")
         p.add_argument("--use_dp", action="store_true",
-                       help="accepted, inert (as JAX's): one card, no data-parallel wrapper")
+                       help="accepted, inert (as JAX's): data parallelism is --mesh_shape")
+        p.add_argument("--mesh_shape", type=str, default="",
+                       help="device mesh as 'data=N' (default: all local devices on one data "
+                            "axis)")
         p.add_argument("--num_workers", type=int, default=4)
         p.add_argument("--compute_dtype", type=str, default="float32",
                        choices=["float32", "bfloat16"],
@@ -183,6 +187,10 @@ class EndoDAVOptions:
         p.add_argument("--depth_image_shape", nargs=2, type=int, default=[224, 280],
                        help="model-internal (H, W); the 518px config is "
                             "'--depth_image_shape 518 518' with keep-aspect sizing")
+        p.add_argument("--serve_mesh", type=str, default="",
+                       help="'data=N': shard video-depth window chunks over N devices "
+                            "(throughput); 'model=N': tensor-parallel ViT trunk over N "
+                            "devices (per-window latency; needs --merge_lora)")
         p.add_argument("--fast_stitch", action="store_true",
                        help="stitch the windows on the device instead of the host")
         p.add_argument("--merge_lora", action="store_true",

@@ -31,6 +31,16 @@ and the loss f32.
 Known reference quirk kept for parity: the temporal depth terms index the
 flattened [B*T] batch with [1:]/[:-1], pairing the last frame of clip b
 with the first frame of clip b+1.  All tensors are channels-last.
+
+Data parallelism (`parallel.data_parallel`, ``--mesh_shape data=N``): each
+rank holds B/N whole clips, and every reduction over the batch is over the
+global batch, as under JAX's mesh: the masked means' numerators and
+denominators are summed over the ranks (`parallel.global_sum`), the plain
+means are `parallel.global_mean`, and the temporal pairs that cross from
+one rank's last frame to the next rank's first are formed with that first
+frame gathered from the next rank (`_next_frames`), on the rank that holds
+the pair's earlier frame.  Outside a data mesh every one of these is the
+single-process reduction.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from endodav_tpu_torch.models.resnet import BatchNorm, discard_batch_stats
 from endodav_tpu_torch.ops.resize import resize2d
 from endodav_tpu_torch.ops.sampling import (flow_to_grid, flow_warp, grid_sample,
                                             occlusion_mask_backward)
+from endodav_tpu_torch.parallel import data_mesh, gather_rows, global_mean, global_sum
 
 __all__ = ["forward_flow_nets", "position_phase_loss", "depth_train_mode", "main_phase",
            "validation_ncc"]
@@ -124,7 +135,8 @@ def position_phase_loss(outputs, batch, scales, position_smoothness: float,
     bt = reg5.shape[1]
     rep5 = reprojection_loss(reg5.flatten(0, 2), ref5.flatten(0, 2), use_ssim).reshape(
         2, bt, n_s, *reg5.shape[3:5], 1)
-    l_reg_fs = (rep5 * occu5).sum(dim=(1, 3, 4, 5)) / occu5.sum(dim=(1, 3, 4, 5))  # [2, n_s]
+    l_reg_fs = (global_sum((rep5 * occu5).sum(dim=(1, 3, 4, 5)))
+                / global_sum(occu5.sum(dim=(1, 3, 4, 5))))  # [2, n_s]
     total = 0.0
     for si, s in enumerate(scales):
         color = batch[("color", 0, s)]
@@ -136,7 +148,31 @@ def position_phase_loss(outputs, batch, scales, position_smoothness: float,
 
 def _masked_mean(x, mask):
     m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp_min(1.0)
+    return global_sum((x * m).sum()) / global_sum(m.sum()).clamp_min(1.0)
+
+
+def _is_last_rank() -> bool:
+    mesh = data_mesh()
+    return mesh is None or mesh.axis_rank("data") == mesh.axis_size("data") - 1
+
+
+def _this_frames(x):
+    """The earlier frame of each temporal pair this rank holds: ``x[:-1]``
+    on one process; under a data mesh every local frame but on the last
+    rank (a pair from a rank's last frame reaches the next rank's first)."""
+    return x[:-1] if _is_last_rank() else x
+
+
+def _next_frames(x):
+    """The later frame of each of those pairs: ``x[1:]``, followed under a
+    data mesh (but on the last rank) by the next rank's first frame."""
+    mesh = data_mesh()
+    if mesh is None:
+        return x[1:]
+    # the last rank takes an empty slice, so that every rank's backward
+    # reaches the gather's (a collective) in the same order
+    r = mesh.axis_rank("data")
+    return torch.cat([x[1:], gather_rows(x[:1])[r + 1:r + 2]])
 
 
 def depth_train_mode(model: torch.nn.Module, train: bool) -> bool:
@@ -160,7 +196,7 @@ def main_phase(mods, batch, cfg, temporal_weight: float = 1.0):
     outputs = forward_flow_nets(mods, batch, scales, (h, w), train_position=False,
                                 train_transform=train)
 
-    video = batch[("color_aug", 0, 0)].reshape(cfg["batch_size"], cfg["T"], h, w, 3)
+    video = batch[("color_aug", 0, 0)].reshape(-1, cfg["T"], h, w, 3)
     disp_out = mods["depth_model"](video, train=depth_train_mode(mods["depth_model"], train))
     discard_batch_stats(mods["depth_model"])
     for s in scales:
@@ -212,32 +248,38 @@ def main_phase(mods, batch, cfg, temporal_weight: float = 1.0):
 
     # temporal depth warps: cross-frame reprojection samples and
     # flow-warped depths, all zeros-mode C=1 warps -- one launch
+    # (frame k, frame k+1) pairs of the flattened batch: `_this_frames` and
+    # `_next_frames` are [:-1] and [1:] on one process
+    nxt, this = {}, {}
+    for s in scales:
+        nxt[("depth", s)] = _next_frames(outputs[("depth", 0, s)])
+        this[("depth", s)] = _this_frames(outputs[("depth", 0, s)])
+        nxt[("src", s)] = _next_frames(src_depth_of[(s, -1)])
+        nxt[("pix", s)] = _next_frames(outputs[("sample", -1, s)])
+        nxt[("hi", s)] = _next_frames(outputs[("position", "high", s, -1)])
     dep_imgs, dep_grids, metas = [], [], []
     for s in scales:
-        depth = outputs[("depth", 0, s)]
         for f in (-1, 1):
             pix = outputs[("sample", f, s)]
-            dep_imgs.append(depth[1:] if f == 1 else depth[:-1])
-            dep_grids.append(pix[:-1] if f == 1 else pix[1:])
+            dep_imgs.append(nxt[("depth", s)] if f == 1 else this[("depth", s)])
+            dep_grids.append(_this_frames(pix) if f == 1 else nxt[("pix", s)])
             metas.append(("reproj", s, f))
     for s in scales:
-        depth = outputs[("depth", 0, s)]
         for f in (-1, 1):
             hi = outputs[("position", "high", s, f)]
-            dep_imgs.append(depth[:-1] if f == 1 else depth[1:])
-            dep_grids.append(flow_to_grid(hi[:-1] if f == 1 else hi[1:]))
+            dep_imgs.append(this[("depth", s)] if f == 1 else nxt[("depth", s)])
+            dep_grids.append(flow_to_grid(_this_frames(hi) if f == 1 else nxt[("hi", s)]))
             metas.append(("flow", s, f))
     sampled_all = grid_sample(torch.cat(dep_imgs), torch.cat(dep_grids), padding_mode="zeros",
                               align_corners=True)
     for (kind, s, f), sampled in zip(metas, sampled_all.chunk(len(metas))):
         if kind == "reproj":
-            src_depths = src_depth_of[(s, f)]
-            src_depth = (src_depths[:-1] if f == 1 else src_depths[1:]).reshape(sampled.shape)
+            src_depth = (_this_frames(src_depth_of[(s, f)]) if f == 1
+                         else nxt[("src", s)]).reshape(sampled.shape)
             outputs[("reproj_depth_error", s, f)] = _masked_mean(
                 abs_jax(src_depth - sampled), sampled > 1e-3)
         else:
-            depth = outputs[("depth", 0, s)]
-            fwd = depth[1:] if f == 1 else depth[:-1]
+            fwd = nxt[("depth", s)] if f == 1 else this[("depth", s)]
             outputs[("flow_depth_error", s, f)] = _masked_mean(
                 abs_jax(sampled - fwd), sampled > 1e-3)
 
@@ -251,17 +293,20 @@ def main_phase(mods, batch, cfg, temporal_weight: float = 1.0):
     rep5 = reprojection_loss(col5.flatten(0, 2), refined5.flatten(0, 2), use_ssim).reshape(
         2, nb, n_s, h, w, 1)
     red = (1, 3, 4, 5)
-    occ_den = occu5.sum(dim=red)                                          # [2, 1]
-    l_rep_fs = (rep5 * occu5).sum(dim=red) / occ_den                      # [2, n_s]
-    l_trans_fs = (abs_jax(refined5 - reg0_5).mean(-1, keepdim=True) * occu5).sum(dim=red) / occ_den
+    occ_den = global_sum(occu5.sum(dim=red))                              # [2, 1]
+    l_rep_fs = global_sum((rep5 * occu5).sum(dim=red)) / occ_den          # [2, n_s]
+    l_trans_fs = global_sum(
+        (abs_jax(refined5 - reg0_5).mean(-1, keepdim=True) * occu5).sum(dim=red)) / occ_den
     residue = batch[("color", 0, 0)][None, :, None] - reg5
     gtx = abs_jax(trans5[..., :, :-1, :] - trans5[..., :, 1:, :]).mean(-1, keepdim=True)
     gty = abs_jax(trans5[..., :-1, :, :] - trans5[..., 1:, :, :]).mean(-1, keepdim=True)
     grx = abs_jax(residue[..., :, :-1, :] - residue[..., :, 1:, :]).mean(-1, keepdim=True)
     gry = abs_jax(residue[..., :-1, :, :] - residue[..., 1:, :, :]).mean(-1, keepdim=True)
     mask_x, mask_y = occu5[..., :, :-1, :], occu5[..., :-1, :, :]
-    l_cvt_fs = ((gtx * torch.exp(-grx) * mask_x).sum(dim=red) / mask_x.sum(dim=red)
-                + (gty * torch.exp(-gry) * mask_y).sum(dim=red) / mask_y.sum(dim=red))
+    l_cvt_fs = (global_sum((gtx * torch.exp(-grx) * mask_x).sum(dim=red))
+                / global_sum(mask_x.sum(dim=red))
+                + global_sum((gty * torch.exp(-gry) * mask_y).sum(dim=red))
+                / global_sum(mask_y.sum(dim=red)))
 
     losses = {}
     total = 0.0
@@ -303,5 +348,5 @@ def validation_ncc(outputs, batch, scales):
     for s in scales:
         regs = [ncc(outputs[("registration", s, f)].mean(dim=-1, keepdim=True), target)
                 for f in (-1, 1)]
-        total = total + torch.cat(regs, dim=-1).amin(dim=-1).mean()
+        total = total + global_mean(torch.cat(regs, dim=-1).amin(dim=-1))
     return -(total / len(scales))

@@ -30,7 +30,20 @@ train and val clips (EndoDAV ``scared_video``); the epoch eval reads
 ``scared_video``'s val sequences for all three.  ``--compute_dtype
 bfloat16`` builds every component with JAX's bf16 compute dtype (f32
 parameters, Adam state and loss).  TensorBoard writers exist when
-``tensorboardX`` imports, as in JAX.  Not ported: the data-parallel mesh.
+``tensorboardX`` imports, as in JAX.
+
+``--mesh_shape data=N`` (JAX :209-221, :476-484) trains over the N ranks
+of a `parallel.launch` world (N clamped to the world, as JAX clamps to
+the visible chips): the [B, T, ...] batch is split on B (B % N raises),
+each rank loading only its clips of the single process's batch; the
+weights are broadcast from rank 0 and both optimizers' states stay
+replicated; each rank backpropagates its share of the global loss (whose
+batch reductions and BatchNorm statistics are the global batch's, see
+`train/losses.py`) and the gradients are summed over the ranks, so a step
+is the data=1 step.  ``val`` runs on each rank's slice with global
+reductions and the epoch eval runs whole on every rank: one set of
+numbers.  Rank 0 alone writes checkpoints, ``opt.json``, ``results.txt``
+and TensorBoard; the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from endodav_tpu_torch.data.loader import Loader, readlines
 from endodav_tpu_torch.data.pipeline import resize_frames
@@ -60,6 +74,9 @@ from endodav_tpu_torch.models.endodav import EndoDAV
 from endodav_tpu_torch.models.lora import LoRADense, dash_svd_update, set_dash_phase2
 from endodav_tpu_torch.models.resnet import ResNetEncoder, commit_batch_stats, resnet_num_ch_enc
 from endodav_tpu_torch.ops.jitter import device_pyramid
+from endodav_tpu_torch.parallel import (barrier, build_mesh, data_parallel, data_sharding,
+                                        is_main, loss_share, replicated, sum_gradients,
+                                        world_devices)
 from endodav_tpu_torch.train import losses as L
 from endodav_tpu_torch.train import optim as O
 from endodav_tpu_torch.utils import checkpoint as ckpt
@@ -215,6 +232,10 @@ class Trainer:
         if tuple(opt.frame_ids) != FRAME_IDS:
             raise ValueError(f"the video trainer needs --frame_ids 0 -1 1, got {opt.frame_ids}")
         self.log_path = os.path.join(opt.log_dir, opt.model_type)
+        # the data mesh (JAX :209-211): the world's ranks, or this device alone
+        self.mesh = build_mesh(getattr(opt, "mesh_shape", ""), clamp=True, devices=(
+            world_devices() if dist.is_initialized() else [self.device]))
+        data_sharding(opt.batch_size, self.mesh)  # B % N raises
         mods = build_models(opt)
         # the eight components' seeded init does not depend on the mask decoder
         self.mods = init_train_({k: m for k, m in mods.items() if k != "predictive_mask"},
@@ -232,7 +253,7 @@ class Trainer:
         if opt.load_weights_folder:
             self.load_model()
         for m in self.mods.values():
-            m.to(self.device)
+            replicated(m.to(self.device), self.mesh)
         self.main_mods = {k: self.mods[k] for k in MAIN_COMPONENTS}
         self.pos_mods = {k: self.mods[k] for k in POSITION_COMPONENTS}
         self.groups = O.assign_groups(self.main_mods)
@@ -277,6 +298,7 @@ class Trainer:
             return
         print(f"[trainer] dash phase boundary at step {self.step}: running SVD update")
         dash_svd_update(self.mods["depth_model"])
+        replicated(self.mods["depth_model"], self.mesh)  # one SVD's weights on every rank
         set_dash_phase2(self.mods["depth_model"], True)
         self.dash_phase2 = True
 
@@ -307,12 +329,13 @@ class Trainer:
                 "configs use --T 16; the default -1 yields no clips), "
                 "--batch_size, and the sequence lengths under "
                 f"{opt.data_path}")
+        shard = (self.mesh.axis_rank("data"), self.mesh.axis_size("data"))
         self.train_loader = Loader(self.train_dataset, opt.batch_size, shuffle=True,
-                                   num_workers=max(1, opt.num_workers))
+                                   num_workers=max(1, opt.num_workers), shard=shard)
         val_files = readlines(fpath.format("val"))
         val_dataset = ScaredVideoClips(opt.data_path, val_files, opt.height, opt.width,
                                        tuple(opt.frame_ids), 4, is_train=False, T=opt.T)
-        self.val_loader = Loader(val_dataset, opt.batch_size, shuffle=False)
+        self.val_loader = Loader(val_dataset, opt.batch_size, shuffle=False, shard=shard)
         self.val_iter = iter(self.val_loader)
         test_files = readlines(os.path.join(splits_dir(), "scared_video", "val_files.txt"))
         self.test_sequences = ScaredVideos(opt.data_path, test_files)
@@ -368,8 +391,13 @@ class Trainer:
         return self.opt.learning_rate * decay, 1e-4 * decay
 
     def step_fn(self, batch: dict, lr: float, lr0: float) -> tuple[dict, dict]:
-        """One training step on a device batch (trainer.py:354-474); returns
-        the loss scalars and the image panels (`_image_panels`)."""
+        """One training step on a device batch (trainer.py:354-474), over the
+        data mesh; returns the loss scalars and the image panels
+        (`_image_panels`)."""
+        with data_parallel(self.mesh):
+            return self._step(batch, lr, lr0)
+
+    def _step(self, batch: dict, lr: float, lr0: float) -> tuple[dict, dict]:
         cfg = self.loss_cfg
         scales, hw = cfg["scales"], (cfg["height"], cfg["width"])
         gates = O.schedule_gates(self.step, self.sched_cfg, self.dash_phase2)
@@ -382,7 +410,8 @@ class Trainer:
         loss_0 = L.position_phase_loss(outputs, batch, scales, cfg["position_smoothness"],
                                        not cfg["no_ssim"])
         self.opt_pos.zero_grad()
-        loss_0.backward()
+        loss_share(loss_0).backward()
+        sum_gradients([p for m in self.pos_mods.values() for p in m.parameters()], self.mesh)
         self.opt_pos.step(lr0)
         commit_batch_stats(self.mods["position_encoder"])
         del outputs
@@ -392,7 +421,8 @@ class Trainer:
         O.set_trainable(self.main_mods, O.gates_tree(self.groups, gates))
         loss, aux = L.main_phase(self.mods, batch, cfg, temporal_weight=gates["tune_temporal"])
         self.opt_main.zero_grad()
-        loss.backward()
+        loss_share(loss).backward()
+        sum_gradients([p for m in self.main_mods.values() for p in m.parameters()], self.mesh)
         self.opt_main.step(lr)
         for k in ("transform_encoder", "pose_encoder"):
             commit_batch_stats(self.mods[k])
@@ -452,7 +482,7 @@ class Trainer:
         for m in flow:
             m.eval()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), data_parallel(self.mesh):
                 outputs = L.forward_flow_nets(self.mods, batch, scales, hw, train_position=False,
                                               train_transform=False)
                 score = float(L.validation_ncc(outputs, batch, scales))
@@ -472,15 +502,18 @@ class Trainer:
         """``--num_epochs`` epochs, each followed by `run_epoch_eval`;
         ``weights_{epoch}`` at a new best RMSE, ``weights_last`` every epoch
         (JAX :585-594)."""
-        self._setup_logging()
+        if is_main():
+            self._setup_logging()
         best_rmse = None
         for self.epoch in range(1, self.opt.num_epochs + 1):
             self.run_epoch()
             rmse, _ = self.run_epoch_eval()
-            if best_rmse is None or rmse < best_rmse:
-                best_rmse = rmse
-                self.save_model(mode="epoch")
-            self.save_model(mode="last")
+            if is_main():
+                if best_rmse is None or rmse < best_rmse:
+                    best_rmse = rmse
+                    self.save_model(mode="epoch")
+                self.save_model(mode="last")
+            barrier()
 
     def eval_forward(self):
         """The depth model's plain window forward (scale-0 disparity), with
@@ -557,11 +590,12 @@ class Trainer:
             for n, v in zip(METRIC_NAMES, vals):
                 w.add_scalar(f"de/{n}", float(v), self.epoch)
         results = os.path.join(self.log_path, "models", "results.txt")
-        os.makedirs(os.path.dirname(results), exist_ok=True)
-        with open(results, "a") as f:
-            f.write(f"Epoch {self.epoch:02d}: " + " ".join(f"{v:.4f}" for v in vals) + "\n")
-            for line in pose_lines:
-                f.write("  " + line + "\n")
+        if is_main():
+            os.makedirs(os.path.dirname(results), exist_ok=True)
+            with open(results, "a") as f:
+                f.write(f"Epoch {self.epoch:02d}: " + " ".join(f"{v:.4f}" for v in vals) + "\n")
+                for line in pose_lines:
+                    f.write("  " + line + "\n")
         self.eval_results = {"values": vals, "pose": pose_results}
         return float(mean_errors[2]), float(mean_errors[4])
 

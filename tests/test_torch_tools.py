@@ -456,14 +456,17 @@ def test_profiling_on_the_cpu(tmp_path):
 
 
 def test_every_jax_flag_parses_with_its_default():
-    """Every flag of JAX's `options.py` but the mesh ones, with JAX's
-    default and choices; the shipped eval scripts' command lines parse."""
+    """Every flag of JAX's `options.py`, the two mesh flags included, with
+    JAX's default and choices; the shipped eval scripts' command lines and
+    the mesh flags' values parse as in JAX."""
     from endodav_tpu.options import EndoDAVOptions as JOptions
     from endodav_tpu_torch.options import EndoDAVOptions
 
     port = {a.dest: a for a in EndoDAVOptions().parser._actions}
     jax_flags = {a.dest: a for a in JOptions().parser._actions}
-    assert set(jax_flags) - set(port) == {"mesh_shape", "serve_mesh"}
+    assert not set(jax_flags) - set(port)
+    assert port["mesh_shape"].default == jax_flags["mesh_shape"].default == ""
+    assert port["serve_mesh"].default == jax_flags["serve_mesh"].default == ""
     for dest, a in jax_flags.items():
         if dest in port and dest not in ("num_layers", "help"):
             assert (port[dest].default, port[dest].choices, port[dest].nargs) == (
@@ -474,5 +477,7 @@ def test_every_jax_flag_parses_with_its_default():
             "--max_length", "32", "--pose_model_type", "posecnn", "--use_dp", "--png"]
     got, want = vars(EndoDAVOptions().parse(line)), vars(JOptions().parse(line))
     for k, v in want.items():
-        if k not in ("mesh_shape", "serve_mesh"):
-            assert got[k] == v, k
+        assert got[k] == v, k
+    mesh = ["--mesh_shape", "data=2", "--serve_mesh", "model=2"]
+    got, want = vars(EndoDAVOptions().parse(mesh)), vars(JOptions().parse(mesh))
+    assert (got["mesh_shape"], got["serve_mesh"]) == (want["mesh_shape"], want["serve_mesh"])
